@@ -1,76 +1,141 @@
 """Fused gather+Gram: the shuffle streams straight into each reducer's block.
 
-Port of ``repro.kernels.pairwise.fused_gather_gram`` (the Pallas TPU kernel
-``fused_gather_gram`` / ``_fused_kernel``).  For every reducer ``r`` of a
-capacity bucket it computes the masked Gram block
-``out[r] = X[idx_r] · X[idx_r]ᵀ`` of shape ``(L, L)`` in fp32, zeroing
-masked slots at gather time; the gathered ``(R, L, d)`` block is never
-written out.
+Port of ``repro.kernels.pairwise.fused_gather_gram``: the Pallas TPU kernels
+``fused_gather_gram`` / ``_fused_kernel`` (square) and
+``fused_gather_gram_rect`` / ``_fused_rect_kernel`` (rectangular, X2Y).
+For every reducer ``r`` of a capacity bucket they compute, in fp32,
 
-``fused_gather_gram`` is the wrapper: on a CUDA table it launches the
-hand-written kernel in ``csrc/fused_gather_gram.cu`` (built for ``sm_90a``
-at first use, see that file for its bound and design) or raises; on a CPU
-table it runs ``fused_gather_gram_ref``, the plain PyTorch version.  There
-is no fallback from the card to the plain version.
+* square: ``out[r] = X[idx_r] · X[idx_r]ᵀ`` of shape ``(L, L)``;
+* rect:   ``out[r] = X[xidx_r] · Y[yidx_r]ᵀ`` of shape ``(Lx, Ly)``, over
+  two tables with independent gather maps and widths,
+
+zeroing masked slots at gather time; the gathered blocks are never written
+out.
+
+``fused_gather_gram`` and ``fused_gather_gram_rect`` are the wrappers: on
+CUDA tensors they launch the hand-written kernels in
+``csrc/fused_gather_gram.cu`` and ``csrc/fused_gather_gram_rect.cu`` (built
+for ``sm_90a`` at first use, see those files for their bounds and designs)
+or raise; on CPU tensors they run ``fused_gather_gram_ref`` /
+``fused_gather_gram_rect_ref``, the plain PyTorch versions.  There is no
+fallback from the card to the plain versions.  A masked slot's index is
+never read by either, so a plan may leave anything there.
 
 Precision: the reference multiplies fp32 with fp32 accumulation and is held
-at 1e-5.  The kernel uses plain fp32 FMA, never TF32, and the plain version
-runs its ``torch.bmm`` with ``torch.backends.cuda.matmul.allow_tf32 = False``
+at 1e-5.  The kernels use plain fp32 FMA, never TF32, and the plain versions
+run ``torch.bmm`` with ``torch.backends.cuda.matmul.allow_tf32 = False``
 so that both stay within that bound on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import functools
 
 import torch
 
 from .. import _build
 
-__all__ = ["fused_gather_gram", "fused_gather_gram_ref", "launch_count",
-           "reset_launch_count"]
+__all__ = ["fused_gather_gram", "fused_gather_gram_ref",
+           "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
+           "gather_rows", "ieee_fp32", "launch_count", "reset_launch_count"]
 
-_LAUNCHES = 0
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]
+_RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
 
 
 def launch_count() -> int:
-    """Kernel launches made by :func:`fused_gather_gram` in this process."""
-    return _LAUNCHES
+    """Launches of the square kernel made by :func:`fused_gather_gram` in
+    this process (``_build.launch_counts()`` has every kernel's)."""
+    return _build.launch_counts().get("fused_gather_gram", 0)
 
 
 def reset_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    """Zero every kernel's launch count."""
+    _build.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """fp32 matrix products in full fp32 (TF32 off) inside the block: the
+    1e-5 fp32 contract the plain versions are held to on the card."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` with masked slots zeroed: ``(m, d)``, ``(R, L)`` ->
+    ``(R, L, d)``.  A masked slot's index is never read (it gathers row 0
+    instead), so a plan may leave anything there."""
+    mask = mask.bool()
+    safe = torch.where(mask, idx, 0).reshape(-1).long()
+    g = x.index_select(0, safe).reshape(*idx.shape, x.shape[1])
+    return torch.where(mask[..., None], g, 0.0)
 
 
 def fused_gather_gram_ref(x: torch.Tensor, idx: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
     """Plain version: gather -> mask -> batched Gram in fp32."""
-    g = x.index_select(0, idx.reshape(-1).long()).reshape(
-        *idx.shape, x.shape[1])
-    g = (g * mask.to(x.dtype)[..., None]).float()
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False   # the 1e-5 fp32 contract
-    try:
+    g = gather_rows(x, idx, mask).float()
+    with ieee_fp32():
         return torch.bmm(g, g.transpose(1, 2))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (every pointer and
-    the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    lib = _build.load("fused_gather_gram")
-    fn = lib.fused_gather_gram_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.fused_gather_gram_error_string.argtypes = [ctypes.c_int]
-    lib.fused_gather_gram_error_string.restype = ctypes.c_char_p
-    return lib
+def fused_gather_gram_rect_ref(x: torch.Tensor, y: torch.Tensor,
+                               xidx: torch.Tensor, xmask: torch.Tensor,
+                               yidx: torch.Tensor,
+                               ymask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the rectangular kernel: gather both sides -> mask
+    -> batched cross Gram in fp32."""
+    gx = gather_rows(x, xidx, xmask).float()
+    gy = gather_rows(y, yidx, ymask).float()
+    with ieee_fp32():
+        return torch.bmm(gx, gy.transpose(1, 2))
+
+
+def _cuda_operands(tables, index_pairs):
+    """Check what the kernels take — one CUDA device, fp32 or bf16 tables
+    of one dtype, int32 indices, bool/uint8 masks, all contiguous — and
+    return the masks as uint8 views."""
+    dev = tables[0].device
+    if any(t.device != dev for t in tables) or any(
+            a.device != dev for pair in index_pairs for a in pair):
+        raise ValueError("tables, indices and masks must lie on one device")
+    if tables[0].dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != tables[0].dtype for t in tables):
+        raise TypeError(f"table dtypes {[t.dtype for t in tables]}: want "
+                        "float32 or bfloat16, one dtype for all")
+    masks = []
+    for idx, mask in index_pairs:
+        if idx.dtype != torch.int32:
+            raise TypeError(f"idx dtype {idx.dtype}: want int32")
+        if mask.dtype == torch.bool:
+            mask = mask.view(torch.uint8)
+        elif mask.dtype != torch.uint8:
+            raise TypeError(f"mask dtype {mask.dtype}: want bool or uint8")
+        masks.append(mask)
+    if not all(a.is_contiguous() for a in
+               (*tables, *(a for pair in index_pairs for a in pair))):
+        raise ValueError("tables, indices and masks must be contiguous")
+    if any(t.shape[0] > torch.iinfo(torch.int32).max for t in tables):
+        raise ValueError("table rows overflow int32 indices")
+    return masks
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
@@ -83,45 +148,61 @@ def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
     slots must index rows of ``x``: the plain version raises otherwise, and
     the kernel, which cannot raise without a sync, gives NaN for every
     entry such a slot touches (it never reads outside the table)."""
-    global _LAUNCHES
     if idx.dim() != 2 or mask.shape != idx.shape or x.dim() != 2:
         raise ValueError(f"want x (m, d), idx/mask (R, L); got "
                          f"{tuple(x.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(mask.shape)}")
-    if x.device.type == "cpu":
+    if _device_of(x) == "cpu":
         return fused_gather_gram_ref(x, idx, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if idx.device != x.device or mask.device != x.device:
-        raise ValueError("x, idx and mask must lie on one device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"table dtype {x.dtype}: want float32 or bfloat16")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx dtype {idx.dtype}: want int32")
-    if mask.dtype == torch.bool:
-        mask = mask.view(torch.uint8)
-    elif mask.dtype != torch.uint8:
-        raise TypeError(f"mask dtype {mask.dtype}: want bool or uint8")
-    if not (x.is_contiguous() and idx.is_contiguous()
-            and mask.is_contiguous()):
-        raise ValueError("x, idx and mask must be contiguous")
-    if x.shape[0] > torch.iinfo(torch.int32).max:
-        raise ValueError(f"table rows {x.shape[0]} overflow int32 indices")
+    (mask,) = _cuda_operands([x], [(idx, mask)])
     R, L = idx.shape
     out = torch.empty((R, L, L), dtype=torch.float32, device=x.device)
     if R == 0:
         return out
-    lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_gather_gram_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), idx.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), R, L, x.shape[1], x.shape[0],
-            stream)
-    if err:
-        msg = lib.fused_gather_gram_error_string(err).decode()
-        raise RuntimeError(
-            f"fused_gather_gram launch failed (R={R}, L={L}, "
-            f"d={x.shape[1]}): {msg}")
-    _LAUNCHES += 1
+        _build.launch(
+            "fused_gather_gram", _SQUARE_ARGS,
+            (x.data_ptr(), int(x.dtype == torch.bfloat16), idx.data_ptr(),
+             mask.data_ptr(), out.data_ptr(), R, L, x.shape[1], x.shape[0],
+             _stream(x)),
+            what=f"R={R}, L={L}, d={x.shape[1]}")
+    return out
+
+
+def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
+                           xidx: torch.Tensor, xmask: torch.Tensor,
+                           yidx: torch.Tensor,
+                           ymask: torch.Tensor) -> torch.Tensor:
+    """``(mx, d)`` X table, ``(my, d)`` Y table, ``(R, Lx)`` X-side and
+    ``(R, Ly)`` Y-side int32 idx / bool mask -> ``(R, Lx, Ly)`` fp32 masked
+    per-reducer cross-Gram blocks.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  ``x`` and ``y`` may be row slices of one table, even
+    overlapping ones (block serving passes ``x[i0:i1]`` and ``x[j0:j1]``):
+    the kernel only reads them.  A valid slot outside its table gives NaN
+    entries on the card, as for the square kernel."""
+    if (xidx.dim() != 2 or xmask.shape != xidx.shape or yidx.dim() != 2
+            or ymask.shape != yidx.shape or yidx.shape[0] != xidx.shape[0]
+            or x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]):
+        raise ValueError(f"want x (mx, d), y (my, d), xidx/xmask (R, Lx), "
+                         f"yidx/ymask (R, Ly); got {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(xidx.shape)}, "
+                         f"{tuple(xmask.shape)}, {tuple(yidx.shape)}, "
+                         f"{tuple(ymask.shape)}")
+    if _device_of(x) == "cpu":
+        return fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
+    xmask, ymask = _cuda_operands([x, y], [(xidx, xmask), (yidx, ymask)])
+    (R, Lx), Ly = xidx.shape, yidx.shape[1]
+    out = torch.empty((R, Lx, Ly), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "fused_gather_gram_rect", _RECT_ARGS,
+            (x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+             xidx.data_ptr(), xmask.data_ptr(), yidx.data_ptr(),
+             ymask.data_ptr(), out.data_ptr(), R, Lx, Ly, x.shape[1],
+             x.shape[0], y.shape[0], _stream(x)),
+            what=f"R={R}, Lx={Lx}, Ly={Ly}, d={x.shape[1]}")
     return out

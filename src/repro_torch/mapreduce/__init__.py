@@ -1,27 +1,44 @@
 """PyTorch execution engine for mapping schemas (port of
-``repro.mapreduce``, square all-pairs slice).
+``repro.mapreduce``).
 
 ``build_plan(schema)`` flattens a :class:`repro_torch.core.MappingSchema`
-into a :class:`ReducerPlan`; ``run_reducers`` / ``run_reducers_bucketed``
+into a :class:`ReducerPlan` (``build_x2y_plan`` a rectangular X2Y one,
+``build_sparse_plan`` / ``block_subplan`` the CSR plan of block serving);
+``run_reducers`` / ``run_reducers_bucketed`` and their ``_x2y`` twins
 execute a generic reducer over it; the executor registry (``dense``,
 ``bucketed``, ``fused``) is the single dispatch point of
-``pairwise_similarity``.
+``pairwise_similarity``, ``x2y_similarity``, ``pairwise_similarity_block``
+and ``skew_join``.  Not ported yet: ``some_pairs_similarity``, the
+``sharded`` / ``coded`` / ``streaming`` executors and meshes.
 """
 
 from .allpairs import (
     assemble_pair_matrix,
     assemble_pair_matrix_bucketed,
+    assemble_x2y_matrix_bucketed,
     block_similarity,
+    block_similarity_x2y,
     pairwise_similarity,
+    pairwise_similarity_block,
+    x2y_similarity,
 )
 from .engine import (
     ReducerBucket,
     ReducerPlan,
+    SparsePlan,
+    block_cache_stats,
+    block_subplan,
     build_plan,
+    build_sparse_plan,
+    build_x2y_plan,
+    build_x2y_plan_arrays,
+    configure_block_cache,
     jit_cache_stats,
     plan_from_arrays,
     run_reducers,
     run_reducers_bucketed,
+    run_reducers_x2y,
+    run_reducers_x2y_bucketed,
 )
 from .executors import (
     BucketedExecutor,
@@ -33,12 +50,19 @@ from .executors import (
     make_executor,
     register_executor,
 )
+from .skewjoin import join, skew_join
 
 __all__ = [
-    "ReducerBucket", "ReducerPlan", "build_plan", "plan_from_arrays",
-    "run_reducers", "run_reducers_bucketed", "jit_cache_stats",
+    "ReducerBucket", "ReducerPlan", "SparsePlan", "build_plan",
+    "build_sparse_plan", "block_subplan", "build_x2y_plan",
+    "build_x2y_plan_arrays", "plan_from_arrays",
+    "run_reducers", "run_reducers_bucketed", "run_reducers_x2y",
+    "run_reducers_x2y_bucketed", "jit_cache_stats",
+    "block_cache_stats", "configure_block_cache",
     "Executor", "DenseExecutor", "BucketedExecutor", "FusedExecutor",
     "register_executor", "get_executor", "make_executor", "list_executors",
-    "pairwise_similarity", "assemble_pair_matrix",
-    "assemble_pair_matrix_bucketed", "block_similarity",
+    "pairwise_similarity", "pairwise_similarity_block", "x2y_similarity",
+    "assemble_pair_matrix", "assemble_pair_matrix_bucketed",
+    "assemble_x2y_matrix_bucketed", "block_similarity",
+    "block_similarity_x2y", "skew_join", "join",
 ]

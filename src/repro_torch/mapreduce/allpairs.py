@@ -1,17 +1,22 @@
-"""A2A application: all-pairs similarity through a mapping schema.
+"""A2A and X2Y applications: similarity through a mapping schema.
 
-Port of the square all-pairs path of ``repro.mapreduce.allpairs``.  Every
-input is a feature row; the planner guarantees each pair of rows meets at
->= 1 reducer; reducers compute the pairwise block; results land in the
-(m, m) matrix:
+Port of ``repro.mapreduce.allpairs``.  Every input is a feature row; the
+planner guarantees each required pair of rows meets at >= 1 reducer;
+reducers compute the pairwise block; results land in the output matrix:
 
-* ``dense`` / ``bucketed`` max-scatter per-reducer blocks into a ``-inf``
-  matrix (``scatter_reduce_(reduce="amax")``);
-* ``fused`` gathers the matrix in ONE step from the concatenated bucket
-  blocks through the host-built inverse-shuffle source map.
+* ``pairwise_similarity`` — the (m, m) all-pairs matrix.  ``dense`` /
+  ``bucketed`` max-scatter per-reducer blocks into a ``-inf`` matrix
+  (``scatter_reduce_(reduce="amax")``); ``fused`` gathers the matrix in ONE
+  step from the concatenated bucket blocks through the host-built
+  inverse-shuffle source map.  ``use_kernel=True`` computes each reducer's
+  block with the ``pairwise_gram`` kernel (one batched launch per bucket).
+* ``x2y_similarity`` — the (mx, my) cross matrix of an X2Y schema, through
+  every executor's ``run_x2y`` (rectangular blocks, never a padded square).
+* ``pairwise_similarity_block`` — one ``[i0:i1) x [j0:j1)`` block of the
+  all-pairs matrix of a hierarchical schema, through ``run_block``, without
+  anything O(m^2) on the host or the device.
 
-Later slices: ``some_pairs_similarity``, ``x2y_similarity`` and
-``pairwise_similarity_block``.
+Not ported yet: ``some_pairs_similarity``.
 """
 
 from __future__ import annotations
@@ -22,18 +27,24 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import plan_a2a
+from repro_torch.core import plan_a2a, plan_a2a_hierarchical, plan_x2y
 from repro_torch.core.schema import MappingSchema
+from repro_torch.kernels.pairwise.ops import pairwise_kernel
 from repro_torch.obs import span as _obs_span
 
-from .engine import ReducerPlan, as_table, build_plan
+from .engine import (ReducerPlan, SparsePlan, _as_tables, as_table,
+                     build_plan, build_sparse_plan, build_x2y_plan)
 from .executors import get_executor
 
 __all__ = [
     "pairwise_similarity",
+    "pairwise_similarity_block",
+    "x2y_similarity",
     "assemble_pair_matrix",
     "assemble_pair_matrix_bucketed",
+    "assemble_x2y_matrix_bucketed",
     "block_similarity",
+    "block_similarity_x2y",
 ]
 
 
@@ -41,13 +52,13 @@ def block_similarity(block: torch.Tensor, mask: torch.Tensor, *,
                      metric: str = "dot", use_kernel: bool = False):
     """(L, d), (L,) -> (L, L) similarity of the valid rows; invalid -> 0.
 
-    ``use_kernel=True`` reaches the ``pairwise_gram`` kernel in the
-    reference, which is not ported yet: it raises."""
+    ``use_kernel=True`` computes the Gram block with the ``pairwise_gram``
+    kernel and finishes the metric as the reference's ``ops._finish`` does
+    (cosine: ``sqrt(clip(n2, 1e-18))``); under ``torch.func.vmap`` the
+    kernel launches once for the whole reducer axis."""
     if use_kernel:
-        raise NotImplementedError(
-            "block_similarity(use_kernel=True) needs the pairwise_gram "
-            "kernel, which is not ported yet")
-    if metric == "dot":
+        sims = pairwise_kernel(block, metric=metric)
+    elif metric == "dot":
         sims = block @ block.T
     elif metric == "l2":
         n2 = torch.sum(block * block, dim=-1)
@@ -75,6 +86,41 @@ def _block_fn(metric: str, use_kernel: bool):
     return fn
 
 
+def block_similarity_x2y(xblock: torch.Tensor, xmask: torch.Tensor,
+                         yblock: torch.Tensor, ymask: torch.Tensor, *,
+                         metric: str = "dot"):
+    """(Lx, d), (Lx,), (Ly, d), (Ly,) -> (Lx, Ly) cross similarity of the
+    valid rows; invalid pairs -> 0.  The rectangular analogue of
+    :func:`block_similarity` (which is the degenerate X == Y case)."""
+    if metric == "dot":
+        sims = xblock @ yblock.T
+    elif metric == "l2":
+        n2x = torch.sum(xblock * xblock, dim=-1)
+        n2y = torch.sum(yblock * yblock, dim=-1)
+        sims = n2x[:, None] + n2y[None, :] - 2.0 * (xblock @ yblock.T)
+    elif metric == "cosine":
+        nx = torch.sqrt(torch.sum(xblock * xblock, dim=-1) + 1e-9)
+        ny = torch.sqrt(torch.sum(yblock * yblock, dim=-1) + 1e-9)
+        sims = (xblock @ yblock.T) / (nx[:, None] * ny[None, :])
+    else:
+        raise ValueError(metric)
+    valid = xmask[:, None] & ymask[None, :]
+    return torch.where(valid, sims, 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_fn_x2y(metric: str):
+    """Memoized two-sided reducer (same contract as ``_block_fn``).  The
+    ``fused_metric`` tag lets the fused executor run the rectangular
+    gather+Gram kernel instead of materializing the gathers."""
+    def fn(xblock, xmask, yblock, ymask):
+        return block_similarity_x2y(xblock, xmask, yblock, ymask,
+                                    metric=metric)
+    fn.__name__ = f"block_similarity_x2y_{metric}"
+    fn.fused_metric = metric
+    return fn
+
+
 def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
     """``build_plan`` memoized on the schema object, so repeated weight
     profiles (``PLAN_CACHE`` hits return the same schema) skip the host
@@ -87,6 +133,92 @@ def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
                           pad_slots_to=pad_slots_to)
         cache[key] = plan
     return plan
+
+
+def _x2y_plan_for(schema, num_x: int, *, pad_reducers_to: int,
+                  pad_slots_to: int):
+    """``build_x2y_plan`` memoized on the schema object (same contract as
+    ``_plan_for``)."""
+    key = ("x2y", num_x, pad_reducers_to, pad_slots_to)
+    cache = schema.__dict__.setdefault("_reducer_plan_cache", {})
+    plan = cache.get(key)
+    if plan is None:
+        plan = build_x2y_plan(schema, num_x,
+                              pad_reducers_to=pad_reducers_to,
+                              pad_slots_to=pad_slots_to)
+        cache[key] = plan
+    return plan
+
+
+def _check_srcmap_size(plan: ReducerPlan, entries_of) -> None:
+    """Source-map positions are int32 as in the reference, so the bucket
+    blocks' total entries must stay below 2**31."""
+    total = 1 + sum(entries_of(b) for b in plan.buckets)
+    if total > np.iinfo(np.int32).max:
+        raise OverflowError(
+            f"{total} block entries overflow the int32 source map")
+
+
+def _pair_source_map_rect(plan: ReducerPlan, mx: int,
+                          my: int) -> np.ndarray:
+    """Rectangular inverse-shuffle map: (mx, my) int32 positions into the
+    concatenation ``[0.0, blocks_0.ravel(), ...]`` of per-bucket cross-Gram
+    stacks.  Like :func:`_pair_source_map` with decoupled axes — rows come
+    from each bucket's X-side ids, columns from its Y-side ids, and there
+    is no diagonal to zero (an (x, y) pair is never a self-pair).
+    Uncovered cells point at slot 0 (-> 0.0).  Cached on the plan."""
+    cached = plan.__dict__.get("_pair_srcmap_rect")
+    if cached is not None and cached[0] == (mx, my):
+        return cached[1]
+    _check_srcmap_size(plan, lambda b: b.R * b.width * b.ywidth)
+    srcmap = np.zeros((mx, my), np.int32)
+    base = 1
+    for b in plan.buckets:
+        Rb, Lx = b.idx.shape
+        Ly = b.yidx.shape[1]
+        rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lx, Ly))
+        cols = np.broadcast_to(b.yidx[:, None, :], (Rb, Lx, Ly))
+        valid = b.mask[:, :, None] & b.ymask[:, None, :]
+        pos = np.arange(base, base + Rb * Lx * Ly,
+                        dtype=np.int64).reshape(Rb, Lx, Ly)
+        srcmap[rows[valid], cols[valid]] = pos[valid]
+        base += Rb * Lx * Ly
+    object.__setattr__(plan, "_pair_srcmap_rect", ((mx, my), srcmap))
+    return srcmap
+
+
+def assemble_x2y_matrix_bucketed(per_bucket, shape: tuple[int, int], *,
+                                 device=None):
+    """Scatter per-bucket (Rb, Lx, Ly[, c]) cross blocks into the global
+    (mx, my[, c]) output.
+
+    ``per_bucket`` is ``run_reducers_x2y_bucketed(..., combine='buckets')``
+    output (the dense executor passes its whole plan as one "bucket").
+    Invalid slots drop into a scratch row (duplicate covered cells agree,
+    so a plain ``index_put_`` is deterministic where it matters), which
+    also handles payload-carrying blocks — the skew join's (Lx, Ly, dx+dy)
+    concat outputs assemble through the same path as similarity
+    matrices.  Uncovered cells are 0 (no diagonal to zero: an (x, y) pair
+    is never a self-pair)."""
+    mx, my = shape
+    if not per_bucket:
+        return torch.zeros((mx, my), dtype=torch.float32, device=device)
+    out = None
+    for b, blocks in per_bucket:
+        trailing = tuple(blocks.shape[3:])
+        dev = blocks.device
+        if out is None:
+            out = torch.zeros((mx + 1, max(my, 1)) + trailing,
+                              dtype=blocks.dtype, device=dev)
+        xidx = torch.as_tensor(b.idx, device=dev).long()
+        yidx = torch.as_tensor(b.yidx, device=dev).long()
+        valid = (torch.as_tensor(b.mask, device=dev)[:, :, None]
+                 & torch.as_tensor(b.ymask, device=dev)[:, None, :])
+        rows = torch.where(valid, xidx[:, :, None], mx)  # invalid -> scratch
+        cols = torch.where(valid, yidx[:, None, :], 0)
+        out[rows.reshape(-1), cols.reshape(-1)] = \
+            blocks.reshape((-1,) + trailing)
+    return out[:mx, :my]
 
 
 def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
@@ -102,10 +234,7 @@ def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
     cached = plan.__dict__.get("_pair_srcmap")
     if cached is not None and cached[0] == m:
         return cached[1]
-    total = 1 + sum(b.R * b.width * b.width for b in plan.buckets)
-    if total > np.iinfo(np.int32).max:
-        raise OverflowError(
-            f"{total} Gram entries overflow the int32 source map")
+    _check_srcmap_size(plan, lambda b: b.R * b.width * b.width)
     srcmap = np.zeros((m, m), np.int32)
     base = 1
     for b in plan.buckets:
@@ -181,13 +310,112 @@ def pairwise_similarity(
     return sims, plan, schema
 
 
+def _sparse_plan_for(schema) -> SparsePlan:
+    """Memoized CSR plan for a schema (one sparse plan per schema object,
+    shared across block requests so executor-side source maps and the
+    sub-plan LRU persist)."""
+    cached = schema.__dict__.get("_sparse_plan")
+    if cached is None:
+        cached = build_sparse_plan(schema)
+        schema.__dict__["_sparse_plan"] = cached
+    return cached
+
+
+def pairwise_similarity_block(
+    x,                                  # (m, d) tensor or array
+    i0: int, i1: int, j0: int, j1: int,
+    *,
+    q: Optional[float] = None,
+    weights=None,                       # per-input sizes; default: uniform
+    schema: Optional[MappingSchema] = None,
+    metric: str = "dot",
+    mesh=None,
+    pad_slots_to: int = 1,
+    executor: str = "bucketed",
+    device=None,
+):
+    """One ``[i0:i1) x [j0:j1)`` sub-block of the all-pairs similarity
+    matrix, without materializing (m, m) anywhere.
+
+    The schema is planned hierarchically (``plan_a2a_hierarchical``: the
+    flat planner at small m, two-level super-input packing at large m) and
+    lowered once to a CSR :class:`~repro_torch.mapreduce.engine.SparsePlan`
+    cached on the schema; each block request then routes through the
+    executor's ``run_block``, which selects only the reducers covering the
+    block and serves them via ``run_x2y``.  Global-diagonal cells inside
+    the block are zeroed, matching ``pairwise_similarity``.
+
+    Returns (block (i1-i0, j1-j0), sparse plan, schema)."""
+    x = as_table(x, device)
+    m = x.shape[0]
+    if schema is None:
+        if q is None:
+            raise ValueError("pass q or a pre-planned schema")
+        w = np.full(m, 1.0) if weights is None else np.asarray(weights, float)
+        schema = plan_a2a_hierarchical(w, q)
+    sparse = _sparse_plan_for(schema)
+    fn = _block_fn_x2y(metric)
+    block = get_executor(executor).run_block(
+        x, sparse, fn, int(i0), int(i1), int(j0), int(j1), mesh=mesh,
+        pad_slots_to=pad_slots_to, device=x.device)
+    return block, sparse, schema
+
+
+def x2y_similarity(
+    x,                                  # (mx, d) X-side feature rows
+    y,                                  # (my, d) Y-side feature rows
+    *,
+    q: float,
+    wx=None,                            # X-side input sizes; default uniform
+    wy=None,                            # Y-side input sizes; default uniform
+    schema: Optional[MappingSchema] = None,
+    metric: str = "dot",
+    mesh=None,
+    use_kernel: bool = False,
+    pad_slots_to: int = 1,
+    executor: str = "bucketed",
+    device=None,
+):
+    """Cross similarity of every X row against every Y row through an X2Y
+    mapping schema (paper Section 10).
+
+    The planner packs X into bins of size b and Y into bins of q - b; each
+    reducer meets one X bin with one Y bin, so every cross pair is covered.
+    Execution is rectangular end to end: reducers emit (Lx, Ly) cross
+    blocks (never a padded square), and ``executor='fused'`` runs the
+    rectangular gather+Gram kernel with independent row/column gather maps
+    and one assembly gather.  ``use_kernel`` is accepted for signature
+    parity (the fused executor runs its kernel on a CUDA table anyway).
+    ``plan_x2y`` is not memoized (as in the reference), so every call
+    plans.  Returns (sims (mx, my), plan, schema)."""
+    x, y = _as_tables((x, y), device)
+    mx, my = x.shape[0], y.shape[0]
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded execution over a mesh is not ported yet")
+    with _obs_span("plan", workload="x2y", mx=mx, my=my):
+        if schema is None:
+            wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)
+            wy_ = np.full(my, 1.0) if wy is None else np.asarray(wy, float)
+            schema = plan_x2y(wx_, wy_, q)
+        plan = _x2y_plan_for(schema, mx, pad_reducers_to=1,
+                             pad_slots_to=pad_slots_to)
+    fn = _block_fn_x2y(metric)
+    with _obs_span("execute", workload="x2y", reducers=plan.num_reducers):
+        sims = get_executor(executor).run_x2y(
+            (x, y), plan, fn, (mx, my), mesh=mesh, use_kernel=use_kernel,
+            device=x.device)
+    return sims, plan, schema
+
+
 def _scatter_blocks(out: torch.Tensor, blocks: torch.Tensor,
                     idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """max-scatter (R, L, L) reducer blocks into the running (m, m) matrix
     (initialized to -inf), in place.  A pair may meet at several reducers;
-    values agree, so `max` combine is deterministic."""
+    values agree, so `max` combine is deterministic.  A masked slot's index
+    is never read: its -inf entries land on cell (0, 0) instead."""
     m = out.shape[0]
-    idx = idx.long()
+    idx = torch.where(mask, idx, 0).long()
     flat = (idx[:, :, None] * m + idx[:, None, :]).reshape(-1)
     valid = mask[:, :, None] & mask[:, None, :]
     vals = torch.where(valid, blocks, float("-inf")).reshape(-1)

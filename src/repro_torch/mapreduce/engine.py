@@ -1,9 +1,10 @@
 """Mapping schema -> static gather plan -> reducer execution, in PyTorch.
 
-Port of ``repro.mapreduce.engine`` for the square all-pairs slice.  The plan
-substrate (``ReducerBucket``, ``ReducerPlan``, ``build_plan``) is the
-reference's numpy code unchanged, so both packages build byte-equal plans
-from one schema.  Execution is eager PyTorch on an explicit device:
+Port of ``repro.mapreduce.engine``.  The plan substrate (``ReducerBucket``,
+``ReducerPlan``, ``build_plan``, the rectangular ``build_x2y_plan`` and the
+CSR ``SparsePlan`` / ``block_subplan`` of block serving) is the reference's
+numpy code unchanged, so both packages build byte-equal plans from one
+schema.  Execution is eager PyTorch on an explicit device:
 
 ``run_reducers``           — the dense path: one gather padded to the global
                              max slot count, ``reducer_fn`` applied over the
@@ -13,19 +14,26 @@ from one schema.  Execution is eager PyTorch on an explicit device:
                              width; ``combine='dense'`` scatters bucket
                              outputs back into original reducer order,
                              ``combine='buckets'`` keeps them unpadded.
+``run_reducers_x2y[_bucketed]`` — the rectangular (X2Y) twins: two
+                             gathers (X side, Y side) per reducer, each
+                             padded to its own width.
 
-``reducer_fn(block (L, d), mask (L,)) -> tensor`` is generic here; the fused
+``reducer_fn(block (L, d), mask (L,)) -> tensor`` (rectangular:
+``reducer_fn(xblock, xmask, yblock, ymask)``) is generic here; the fused
 executor (``executors.FusedExecutor``) runs Gram-block reducers through the
-hand-written gather+Gram kernel instead.
+hand-written gather+Gram kernels instead.  Gathers never read a masked
+slot's index: a plan may leave anything there.
 
 With no ``jit`` to cache, the engine's bounded LRU holds what each
 (plan, device) pair uploads: index/mask/row tensors and the fused
-assembly's source map.  ``jit_cache_stats()`` keeps the reference's keys so
+assembly's source maps.  ``jit_cache_stats()`` keeps the reference's keys so
 serving telemetry reads both packages alike; a ``shape_miss`` is a table
 shape or dtype that an entry has not served before.
 
 ``plan_from_arrays`` rebuilds a plan from the fields of a reference plan
-(``dataclasses.asdict``), so both packages can run one plan.
+(``dataclasses.asdict``), so both packages can run one plan.  Block
+sub-plans are LRU-cached per ``SparsePlan`` under one shared cap
+(``REPRO_BLOCK_CACHE_SIZE`` / ``configure_block_cache``).
 
 Meshes (sharded execution) are a later slice: ``mesh`` other than ``None``
 raises ``NotImplementedError``.
@@ -45,8 +53,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.core.planner import compute_buckets
+from repro_torch.core.planner import compute_buckets, compute_rect_buckets
 from repro_torch.core.schema import MappingSchema
+from repro_torch.kernels.pairwise.fused_gather_gram import gather_rows
 from repro_torch.obs import EVENTS as _OBS_EVENTS
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 
@@ -54,9 +63,18 @@ __all__ = [
     "ReducerBucket",
     "ReducerPlan",
     "build_plan",
+    "build_x2y_plan",
+    "build_x2y_plan_arrays",
+    "SparsePlan",
+    "build_sparse_plan",
+    "block_subplan",
+    "configure_block_cache",
+    "block_cache_stats",
     "plan_from_arrays",
     "run_reducers",
     "run_reducers_bucketed",
+    "run_reducers_x2y",
+    "run_reducers_x2y_bucketed",
     "jit_cache_stats",
 ]
 
@@ -71,7 +89,7 @@ class ReducerBucket:
           dense plan, but only ``width`` slots wide.
 
     ``ywidth`` / ``yidx`` / ``ymask`` carry the Y side of rectangular (X2Y)
-    buckets (a later slice); ``yidx is None`` marks the square case.
+    buckets; ``yidx is None`` marks the square case.
     """
 
     width: int
@@ -109,8 +127,8 @@ class ReducerPlan:
           every real reducer row appears in exactly one bucket.
 
     The plan also carries the schema's provenance (winning strategy, paper
-    lower bound) for telemetry.  The rectangular fields (``yidx`` ...) keep
-    the reference's layout for the X2Y slice.
+    lower bound) for telemetry.  Rectangular (X2Y) plans add the Y side:
+    ``yidx``/``ymask`` (R, Ly) index rows of a second table.
     """
 
     idx: np.ndarray
@@ -230,6 +248,293 @@ def build_plan(schema: MappingSchema, *, pad_reducers_to: int = 1,
                        buckets=buckets)
 
 
+# ---------------------------------------------------------------------------
+# rectangular (X2Y) plans: per-reducer X-side and Y-side index lists
+# ---------------------------------------------------------------------------
+def _build_rect_buckets(xs: list[list[int]], ys: list[list[int]], *,
+                        pad_slots_to: int, pad_reducers_to: int,
+                        max_buckets: int) -> tuple[ReducerBucket, ...]:
+    """Rectangular capacity buckets: reducers grouped by (wx, wy) width
+    pairs (``compute_rect_buckets``), each side padded to its own
+    power-of-two width; rows padded to a multiple of ``pad_reducers_to``."""
+    out = []
+    for wx, wy, rows in compute_rect_buckets(
+            [len(a) for a in xs], [len(a) for a in ys],
+            pad_slots_to=pad_slots_to, max_buckets=max_buckets):
+        Rb = -(-max(len(rows), 1) // pad_reducers_to) * pad_reducers_to
+        idx = np.zeros((Rb, wx), dtype=np.int32)
+        mask = np.zeros((Rb, wx), dtype=bool)
+        yidx = np.zeros((Rb, wy), dtype=np.int32)
+        ymask = np.zeros((Rb, wy), dtype=bool)
+        rows_padded = np.full(Rb, -1, dtype=np.int64)
+        rows_padded[: len(rows)] = rows
+        for i, r in enumerate(rows):
+            a, b = xs[r], ys[r]
+            idx[i, : len(a)] = a
+            mask[i, : len(a)] = True
+            yidx[i, : len(b)] = b
+            ymask[i, : len(b)] = True
+        out.append(ReducerBucket(width=wx, rows=rows_padded, idx=idx,
+                                 mask=mask, ywidth=wy, yidx=yidx,
+                                 ymask=ymask))
+    return tuple(out)
+
+
+def build_x2y_plan_arrays(
+    xs: list[list[int]],               # per-reducer X-table row ids
+    ys: list[list[int]],               # per-reducer Y-table row ids
+    *,
+    num_x: int,
+    num_y: int,
+    comm_cost: float = 0.0,
+    algorithm: str = "x2y",
+    lower_bound: Optional[float] = None,
+    pad_reducers_to: int = 1,
+    pad_slots_to: int = 1,
+    max_buckets: int = 8,
+) -> ReducerPlan:
+    """Rectangular plan from explicit per-reducer X/Y id lists.
+
+    The low-level builder ``build_x2y_plan`` and ``block_subplan`` share:
+    reducer ``r`` gathers ``xs[r]`` from the X table and ``ys[r]`` from the
+    Y table and emits the (|xs[r]|, |ys[r]|) cross block."""
+    assert len(xs) == len(ys), (len(xs), len(ys))
+    R0 = len(xs)
+    Lx0 = max((len(a) for a in xs), default=1)
+    Ly0 = max((len(a) for a in ys), default=1)
+    Lx = -(-Lx0 // pad_slots_to) * pad_slots_to
+    Ly = -(-Ly0 // pad_slots_to) * pad_slots_to
+    R = -(-max(R0, 1) // pad_reducers_to) * pad_reducers_to
+    idx = np.zeros((R, Lx), dtype=np.int32)
+    mask = np.zeros((R, Lx), dtype=bool)
+    yidx = np.zeros((R, Ly), dtype=np.int32)
+    ymask = np.zeros((R, Ly), dtype=bool)
+    for r in range(R0):
+        a, b = xs[r], ys[r]
+        idx[r, : len(a)] = a
+        mask[r, : len(a)] = True
+        yidx[r, : len(b)] = b
+        ymask[r, : len(b)] = True
+    buckets = _build_rect_buckets(xs, ys, pad_slots_to=pad_slots_to,
+                                  pad_reducers_to=pad_reducers_to,
+                                  max_buckets=max_buckets)
+    return ReducerPlan(
+        idx=idx, mask=mask, num_reducers=R0, comm_cost=float(comm_cost),
+        max_inputs=Lx0, algorithm=algorithm, lower_bound=lower_bound,
+        buckets=buckets, yidx=yidx, ymask=ymask, max_y_inputs=Ly0,
+        num_x=int(num_x), num_y=int(num_y))
+
+
+# ---------------------------------------------------------------------------
+# sparse plans: CSR gather maps for block-addressed serving (no O(m^2) host)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SparsePlan:
+    """CSR view of a schema for block-addressed execution.
+
+    ``build_plan`` expands reducer -> original input ids, which at m = 10^6
+    with thousands of inputs per reducer is ~10^9 host entries before a
+    single gather runs.  The sparse plan stays at the schema's own
+    granularity — three CSR maps totaling O(m + assignments):
+
+      bin_indptr / bin_inputs    — bin -> original input ids (disjoint);
+      bin_of                     — input -> bin (inverse of the above);
+      red_indptr / red_bins      — reducer -> bin ids;
+      binred_indptr / bin_reds   — bin -> reducer ids (inverse shuffle).
+
+    ``block_subplan`` materializes only the reducers a requested
+    ``[i0:i1) x [j0:j1)`` output block needs, as a rectangular
+    :class:`ReducerPlan` in block-local coordinates, so every registry
+    executor serves blocks through its existing ``run_x2y`` path.  Built
+    sub-plans are LRU-cached on the instance (``_block_cache``) because
+    the fused executor caches its inverse-shuffle srcmap per plan object.
+    """
+
+    num_inputs: int
+    q: float
+    bin_indptr: np.ndarray
+    bin_inputs: np.ndarray
+    bin_of: np.ndarray
+    red_indptr: np.ndarray
+    red_bins: np.ndarray
+    binred_indptr: np.ndarray
+    bin_reds: np.ndarray
+    comm_cost: float = 0.0
+    lower_bound: Optional[float] = None
+    algorithm: str = "unknown"
+
+    @property
+    def num_bins(self) -> int:
+        return int(len(self.bin_indptr) - 1)
+
+    @property
+    def num_reducers(self) -> int:
+        return int(len(self.red_indptr) - 1)
+
+    @property
+    def host_entries(self) -> int:
+        """Total host-side index entries — o(m^2) by construction."""
+        return int(self.bin_inputs.size + self.bin_of.size
+                   + 2 * self.red_bins.size)
+
+    @property
+    def optimality_gap(self) -> Optional[float]:
+        if self.lower_bound is None or self.lower_bound <= 0.0:
+            return None
+        return self.comm_cost / self.lower_bound
+
+
+def build_sparse_plan(schema: MappingSchema) -> SparsePlan:
+    """CSR maps from a disjoint-bins schema, no per-input Python loops.
+
+    Raises on overlapping-bin schemas (hybrid / big-input paths): those are
+    small-m constructions that the dense ``build_plan`` already serves.
+    """
+    if schema.meta.get("bins_overlap", False):
+        raise ValueError(
+            "sparse plans require disjoint bins; use build_plan for the "
+            "overlapping hybrid/big-input schemas")
+    m = schema.m
+    nb = len(schema.bins)
+    bin_counts = np.asarray([len(b) for b in schema.bins], dtype=np.int64)
+    bin_inputs = (np.concatenate(
+        [np.asarray(b, dtype=np.int64) for b in schema.bins])
+        if nb else np.zeros(0, dtype=np.int64))
+    bin_indptr = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(bin_counts, out=bin_indptr[1:])
+    bin_of = np.full(m, -1, dtype=np.int64)
+    bin_of[bin_inputs] = np.repeat(
+        np.arange(nb, dtype=np.int64), bin_counts)
+
+    nr = len(schema.reducers)
+    red_counts = np.asarray([len(r) for r in schema.reducers],
+                            dtype=np.int64)
+    red_bins = (np.concatenate(
+        [np.asarray(r, dtype=np.int64) for r in schema.reducers])
+        if nr else np.zeros(0, dtype=np.int64))
+    red_indptr = np.zeros(nr + 1, dtype=np.int64)
+    np.cumsum(red_counts, out=red_indptr[1:])
+
+    # invert to bin -> reducers (the inverse-shuffle direction)
+    red_of = np.repeat(np.arange(nr, dtype=np.int64), red_counts)
+    order = np.lexsort((red_of, red_bins))
+    binred_indptr = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(np.bincount(red_bins, minlength=nb), out=binred_indptr[1:])
+    return SparsePlan(
+        num_inputs=m, q=float(schema.q), bin_indptr=bin_indptr,
+        bin_inputs=bin_inputs, bin_of=bin_of, red_indptr=red_indptr,
+        red_bins=red_bins, binred_indptr=binred_indptr,
+        bin_reds=red_of[order], comm_cost=schema.communication_cost(),
+        lower_bound=schema.lower_bound, algorithm=schema.algorithm)
+
+
+def _gather_csr(indptr: np.ndarray, data: np.ndarray,
+                keys: np.ndarray) -> np.ndarray:
+    """Concatenate ``data[indptr[k]:indptr[k+1]]`` over ``keys``."""
+    if keys.size == 0:
+        return np.zeros(0, dtype=data.dtype)
+    return np.concatenate(
+        [data[indptr[k]:indptr[k + 1]] for k in keys])
+
+
+def block_subplan(sparse: SparsePlan, i0: int, i1: int, j0: int, j1: int,
+                  *, pad_reducers_to: int = 1, pad_slots_to: int = 1,
+                  max_buckets: int = 8,
+                  cache_size: Optional[int] = None) -> Optional[ReducerPlan]:
+    """Rectangular sub-plan serving output block ``[i0:i1) x [j0:j1)``.
+
+    Selects exactly the reducers hosting at least one row bin *and* one
+    column bin — for any required pair (i, j) in the block, the reducer
+    the schema covers it with hosts ``bin_of[i]`` (a row bin) and
+    ``bin_of[j]`` (a column bin), so it is selected and the block inherits
+    the schema's full coverage.  Each selected reducer is restricted to
+    the block-local X / Y ids it actually hosts; the result is an ordinary
+    rectangular plan any executor runs via ``run_x2y``.  Returns ``None``
+    for a block no reducer touches (empty ranges).  LRU-cached on the
+    sparse plan so repeated requests reuse executor-side srcmaps;
+    ``cache_size=None`` (default) takes the shared cap set by
+    ``REPRO_BLOCK_CACHE_SIZE`` / :func:`configure_block_cache`, and
+    hit/miss/evict counters feed :func:`block_cache_stats`.
+    """
+    if cache_size is None:
+        cache_size = _BLOCK_CACHE_MAX
+    if not (0 <= i0 <= i1 <= sparse.num_inputs
+            and 0 <= j0 <= j1 <= sparse.num_inputs):
+        raise IndexError(
+            f"block [{i0}:{i1}) x [{j0}:{j1}) outside "
+            f"m={sparse.num_inputs}")
+    key = (i0, i1, j0, j1, pad_reducers_to, pad_slots_to, max_buckets)
+    cache = sparse.__dict__.get("_block_cache")
+    if cache is None:
+        cache = OrderedDict()
+        object.__setattr__(sparse, "_block_cache", cache)
+    if key in cache:
+        cache.move_to_end(key)
+        _BLOCK_CACHE_STATS["hits"] += 1
+        _OBS_REGISTRY.counter("cache.hits", cache="block").inc()
+        return cache[key]
+    _BLOCK_CACHE_STATS["misses"] += 1
+    _OBS_REGISTRY.counter("cache.misses", cache="block").inc()
+
+    row_bins = np.unique(sparse.bin_of[i0:i1])
+    col_bins = np.unique(sparse.bin_of[j0:j1])
+    row_bins = row_bins[row_bins >= 0]
+    col_bins = col_bins[col_bins >= 0]
+    row_reds = np.unique(
+        _gather_csr(sparse.binred_indptr, sparse.bin_reds, row_bins))
+    col_reds = np.unique(
+        _gather_csr(sparse.binred_indptr, sparse.bin_reds, col_bins))
+    cand = np.intersect1d(row_reds, col_reds, assume_unique=True)
+
+    xs: list[np.ndarray] = []
+    ys: list[np.ndarray] = []
+    for r in cand:
+        bins_r = sparse.red_bins[
+            sparse.red_indptr[r]:sparse.red_indptr[r + 1]]
+        inputs_r = _gather_csr(sparse.bin_indptr, sparse.bin_inputs, bins_r)
+        xr = inputs_r[(inputs_r >= i0) & (inputs_r < i1)] - i0
+        yr = inputs_r[(inputs_r >= j0) & (inputs_r < j1)] - j0
+        if xr.size and yr.size:
+            xs.append(xr)
+            ys.append(yr)
+    if not xs:
+        plan = None
+    else:
+        plan = build_x2y_plan_arrays(
+            xs, ys, num_x=i1 - i0, num_y=j1 - j0,
+            comm_cost=float(sum(len(a) + len(b)
+                                for a, b in zip(xs, ys))),
+            algorithm=f"block+{sparse.algorithm}",
+            pad_reducers_to=pad_reducers_to, pad_slots_to=pad_slots_to,
+            max_buckets=max_buckets)
+    cache[key] = plan
+    while len(cache) > cache_size:
+        evicted, _ = cache.popitem(last=False)
+        _BLOCK_CACHE_STATS["evictions"] += 1
+        _OBS_REGISTRY.counter("cache.evictions", cache="block").inc()
+        _OBS_EVENTS.emit("cache_eviction", cache="block",
+                         key=str(evicted))
+    return plan
+
+
+def build_x2y_plan(schema: MappingSchema, num_x: int, *,
+                   pad_reducers_to: int = 1, pad_slots_to: int = 1,
+                   max_buckets: int = 8) -> ReducerPlan:
+    """Flatten an X2Y schema (``plan_x2y`` convention: global ids
+    ``0..num_x-1`` are X, ``num_x..`` are Y) into a rectangular plan:
+    each reducer's expanded ids are split at the X/Y boundary, Y ids are
+    re-based to Y-table-local rows, and capacity buckets group reducers by
+    (wx, wy) power-of-two width pairs."""
+    expanded = schema.expand()
+    xs = [[i for i in ids if i < num_x] for ids in expanded]
+    ys = [[i - num_x for i in ids if i >= num_x] for ids in expanded]
+    return build_x2y_plan_arrays(
+        xs, ys, num_x=num_x, num_y=len(schema.weights) - num_x,
+        comm_cost=schema.communication_cost(), algorithm=schema.algorithm,
+        lower_bound=schema.lower_bound, pad_reducers_to=pad_reducers_to,
+        pad_slots_to=pad_slots_to, max_buckets=max_buckets)
+
+
 def _opt_array(a, dtype) -> Optional[np.ndarray]:
     return None if a is None else np.asarray(a, dtype=dtype)
 
@@ -287,10 +592,11 @@ def as_table(inputs, device=None) -> torch.Tensor:
 # use, so keys never alias another plan, and a plan's entries leave the
 # cache when the plan is garbage-collected (serving builds a fresh plan per
 # request, so stale device tensors would otherwise wait for eviction).
-def _env_cache_size(default: int = 64) -> int:
-    """``REPRO_JIT_CACHE_SIZE`` as a cap >= 1; malformed or non-positive
-    values fall back to the default."""
-    raw = os.environ.get("REPRO_JIT_CACHE_SIZE", "")
+def _env_cache_size(default: int = 64,
+                    var: str = "REPRO_JIT_CACHE_SIZE") -> int:
+    """``var`` as a cap >= 1; malformed or non-positive values fall back
+    to the default."""
+    raw = os.environ.get(var, "")
     try:
         size = int(raw)
     except ValueError:
@@ -316,10 +622,11 @@ def _evict_oldest():
     _OBS_EVENTS.emit("cache_eviction", cache="jit", key=_key_label(key))
 
 
-def _record_shape(key, table) -> None:
-    """A table shape/dtype an entry has served before is a ``shape_hit``;
-    a new one is a ``shape_miss``."""
-    sig = (tuple(table.shape), str(table.dtype))
+def _record_shape(key, tables) -> None:
+    """A table shape/dtype signature (both tables of a rectangular request)
+    an entry has served before is a ``shape_hit``; a new one is a
+    ``shape_miss``."""
+    sig = tuple((tuple(t.shape), str(t.dtype)) for t in tables)
     seen = _JIT_SHAPES.setdefault(key, set())
     if sig in seen:
         _JIT_CACHE_STATS["shape_hits"] += 1
@@ -366,6 +673,33 @@ def jit_cache_stats() -> dict:
             "max_size": _JIT_CACHE_MAX, "per_key": per_key}
 
 
+# The block sub-plan LRU (``block_subplan``) lives per SparsePlan instance
+# but all instances share one configurable cap and one set of counters,
+# mirroring the upload cache above: ``REPRO_BLOCK_CACHE_SIZE`` /
+# ``configure_block_cache()`` set the cap, ``block_cache_stats()`` feeds
+# the serving telemetry.  The cap is applied at insert time, so lowering
+# it trims each plan's cache on that plan's next block request.
+_BLOCK_CACHE_MAX = _env_cache_size(var="REPRO_BLOCK_CACHE_SIZE")
+_BLOCK_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def configure_block_cache(max_size: Optional[int] = None) -> int:
+    """Set the block sub-plan LRU cap; with no argument, re-read
+    ``REPRO_BLOCK_CACHE_SIZE`` from the environment (default 64).
+    Returns the active cap."""
+    global _BLOCK_CACHE_MAX
+    if max_size is None:
+        max_size = _env_cache_size(var="REPRO_BLOCK_CACHE_SIZE")
+    assert max_size >= 1, max_size
+    _BLOCK_CACHE_MAX = max_size
+    return _BLOCK_CACHE_MAX
+
+
+def block_cache_stats() -> dict:
+    """Block sub-plan cache counters (shared across all SparsePlans)."""
+    return {**_BLOCK_CACHE_STATS, "max_size": _BLOCK_CACHE_MAX}
+
+
 def _drop_plan(tok: int) -> None:
     for key in [k for k in _JIT_CACHE if k[1] == tok]:
         del _JIT_CACHE[key]
@@ -382,29 +716,53 @@ def _plan_token(plan) -> int:
     return tok
 
 
-def _check_indices(plan, m: int) -> None:
-    """Every index the plan gathers must be a row of the ``m``-row table:
-    the device gathers cannot raise, so a plan built elsewhere
+def _masked_range(pairs) -> tuple[int, int]:
+    """(min, max) over the valid slots of ``(idx, mask)`` arrays; (0, -1)
+    when no slot is valid."""
+    valid = [np.asarray(idx)[np.asarray(mask, dtype=bool)]
+             for idx, mask in pairs]
+    valid = [v for v in valid if v.size]
+    if not valid:
+        return 0, -1
+    return (min(int(v.min()) for v in valid),
+            max(int(v.max()) for v in valid))
+
+
+def _check_indices(plan, mx: int, my: Optional[int] = None) -> None:
+    """Every index the plan gathers through a valid slot must be a row of
+    its table: X-side ``idx`` of the ``mx``-row table and, on a
+    rectangular plan, Y-side ``yidx`` of the ``my``-row table.  Masked
+    slots are never gathered, so whatever they hold is not checked.  The
+    device gathers cannot raise, so a plan built elsewhere
     (``plan_from_arrays``) is checked here, once per plan (cached)."""
-    lo, hi = plan.__dict__.get("_index_range") or (None, None)
-    if lo is None:
-        arrays = [plan.idx] + [b.idx for b in plan.buckets]
-        lo = min(int(a.min(initial=0)) for a in arrays)
-        hi = max(int(a.max(initial=0)) for a in arrays)
-        object.__setattr__(plan, "_index_range", (lo, hi))
-    if lo < 0 or hi >= m:
-        raise IndexError(f"plan gathers rows {lo}..{hi} from a table of "
-                         f"{m} rows")
+    ranges = plan.__dict__.get("_index_range")
+    if ranges is None:
+        ranges = [_masked_range([(plan.idx, plan.mask)]
+                                + [(b.idx, b.mask) for b in plan.buckets])]
+        if plan.is_rect:
+            ranges.append(_masked_range(
+                [(plan.yidx, plan.ymask)]
+                + [(b.yidx, b.ymask) for b in plan.buckets]))
+        object.__setattr__(plan, "_index_range", ranges)
+    sides = [("", mx)] + ([("Y-side ", mx if my is None else my)]
+                          if plan.is_rect else [])
+    for (side, m), (lo, hi) in zip(sides, ranges):
+        if hi >= 0 and (lo < 0 or hi >= m):
+            raise IndexError(f"plan gathers {side}rows {lo}..{hi} from a "
+                             f"table of {m} rows")
 
 
-def uploaded(kind: str, plan, table: torch.Tensor, factory):
+def uploaded(kind: str, plan, table: torch.Tensor, factory,
+             ytable: Optional[torch.Tensor] = None):
     """``factory(device)`` for (kind, plan, table.device), through the LRU,
-    after checking the plan's indices against the table; the table's shape
-    and dtype feed the shape counters."""
-    _check_indices(plan, table.shape[0])
+    after checking the plan's indices against the table (and, for a
+    rectangular plan, its Y side against ``ytable``); the tables' shapes
+    and dtypes feed the shape counters."""
+    tables = (table,) if ytable is None else (table, ytable)
+    _check_indices(plan, *(t.shape[0] for t in tables))
     key = (kind, _plan_token(plan), str(table.device))
     value = _cache_get(key, lambda: factory(table.device))
-    _record_shape(key, table)
+    _record_shape(key, tables)
     return value
 
 
@@ -428,13 +786,26 @@ def bucket_arrays(plan, device):
         for b in plan.buckets)
 
 
+def _dense_rect_arrays(plan, device):
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (plan.idx, plan.mask, plan.yidx, plan.ymask))
+
+
+def rect_bucket_arrays(plan, device):
+    """Per-bucket ``(xidx int32, xmask bool, yidx int32, ymask bool,
+    scatter rows int64)`` tensors of a rectangular plan on ``device``."""
+    return tuple(
+        tuple(torch.as_tensor(a, device=device)
+              for a in (b.idx, b.mask, b.yidx, b.ymask))
+        + (torch.as_tensor(_scatter_rows(b, plan.R), device=device),)
+        for b in plan.buckets)
+
+
 # ---------------------------------------------------------------------------
 # dense + bucketed runners
 # ---------------------------------------------------------------------------
 def _gather_reduce(x, idx, mask, reducer_fn):
-    R, L = idx.shape
-    gathered = x.index_select(0, idx.reshape(-1)).reshape(R, L, x.shape[1])
-    gathered = torch.where(mask[..., None], gathered, 0.0)   # the shuffle
+    gathered = gather_rows(x, idx, mask)                  # the shuffle
     return torch.func.vmap(reducer_fn)(gathered, mask)
 
 
@@ -501,4 +872,86 @@ def run_reducers_bucketed(
     acc = x.new_zeros((plan.R + 1,) + probe.shape[1:], dtype=probe.dtype)
     for (b, out), (_, _, rows) in zip(per_bucket, arrays):
         acc[rows] = _pad_to(out, probe.shape[1:])    # padding rows -> row R
+    return acc[: plan.R]
+
+
+# ---------------------------------------------------------------------------
+# rectangular (X2Y) runners
+# ---------------------------------------------------------------------------
+def _gather_reduce_x2y(xt, yt, xidx, xmask, yidx, ymask, reducer_fn):
+    gx = gather_rows(xt, xidx, xmask)                     # X-side shuffle
+    gy = gather_rows(yt, yidx, ymask)                     # Y-side shuffle
+    return torch.func.vmap(reducer_fn)(gx, xmask, gy, ymask)
+
+
+def _as_tables(tables, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x_table, y_table) on the resolved device from a pair or a single
+    shared table (X == Y)."""
+    if isinstance(tables, (tuple, list)):
+        xt, yt = tables
+    else:
+        xt = yt = tables
+    return as_table(xt, device), as_table(yt, device)
+
+
+def run_reducers_x2y(
+    tables,                                # (x (mx, dx), y (my, dy)) pair
+    plan: ReducerPlan,
+    reducer_fn: Callable,
+    *,
+    mesh=None,
+    device=None,
+):
+    """Dense rectangular execution: ``reducer_fn(xblock (Lx, dx),
+    xmask (Lx,), yblock (Ly, dy), ymask (Ly,)) -> tensor`` per reducer.
+
+    The two gathers are the bipartite shuffle — X rows and Y rows ship to
+    their reducer slots independently.  ``tables`` may be one tensor
+    (shared table) or an (x, y) pair."""
+    assert plan.is_rect, "run_reducers_x2y needs a rectangular plan"
+    _no_mesh(mesh)
+    xt, yt = _as_tables(tables, device)
+    arrays = uploaded("x2y-dense", plan, xt,
+                      lambda dev: _dense_rect_arrays(plan, dev), ytable=yt)
+    return _gather_reduce_x2y(xt, yt, *arrays, reducer_fn)
+
+
+def run_reducers_x2y_bucketed(
+    tables,
+    plan: ReducerPlan,
+    reducer_fn: Callable,
+    *,
+    mesh=None,
+    combine: str = "dense",
+    device=None,
+):
+    """Skew-aware rectangular execution: one double-gather+reduce per
+    (wx, wy) capacity bucket.  Semantics mirror
+    :func:`run_reducers_bucketed`: ``combine='dense'`` scatters bucket
+    outputs (padded on both slot axes to the dense (Lx, Ly)) back into
+    original reducer order; ``combine='buckets'`` returns
+    ``[(bucket, out), ...]`` unpadded."""
+    assert combine in ("dense", "buckets"), combine
+    assert plan.is_rect, "run_reducers_x2y_bucketed needs a rect plan"
+    _no_mesh(mesh)
+    if not plan.buckets:
+        out = run_reducers_x2y(tables, plan, reducer_fn, device=device)
+        return out if combine == "dense" else []
+    xt, yt = _as_tables(tables, device)
+    arrays = uploaded("x2y-buckets", plan, xt,
+                      lambda dev: rect_bucket_arrays(plan, dev), ytable=yt)
+    per_bucket = [(b, _gather_reduce_x2y(xt, yt, *arr[:4], reducer_fn))
+                  for b, arr in zip(plan.buckets, arrays)]
+    if combine == "buckets":
+        return per_bucket
+
+    # the dense output shape: the reducer on zero blocks of width (L, Ly)
+    def zeros(n, t):
+        return (t.new_zeros((1, n, t.shape[1])),
+                torch.zeros((1, n), dtype=torch.bool, device=t.device))
+    probe = torch.func.vmap(reducer_fn)(*zeros(plan.L, xt),
+                                        *zeros(plan.Ly, yt))
+    acc = xt.new_zeros((plan.R + 1,) + probe.shape[1:], dtype=probe.dtype)
+    for (b, out), arr in zip(per_bucket, arrays):
+        acc[arr[4]] = _pad_to(out, probe.shape[1:])  # padding rows -> row R
     return acc[: plan.R]

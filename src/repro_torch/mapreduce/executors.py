@@ -1,30 +1,37 @@
-"""Executor protocol + registry, ported for the square all-pairs slice.
+"""Executor protocol + registry (port of ``repro.mapreduce.executors``).
 
-Port of ``repro.mapreduce.executors``.  An :class:`Executor` decides how a
+An :class:`Executor` decides how a
 :class:`~repro_torch.mapreduce.engine.ReducerPlan` runs on the device:
 
   ``run(inputs, plan, reducer_fn, ...)``     — execute the plan;
   ``run_pairs(x, plan, reducer_fn, m, ...)`` — execute + assemble the
         (m, m) pair matrix;
+  ``run_x2y(tables, plan, reducer_fn, shape, ...)`` — execute a
+        rectangular (X2Y) plan + assemble the (mx, my[, c]) cross output;
+  ``run_block(x, sparse, reducer_fn, i0, i1, j0, j1, ...)`` — serve one
+        block of the pair matrix through ``run_x2y`` on the block's
+        sub-plan;
   ``stats()`` / ``reset()``                  — instance-scoped dispatch
         telemetry, also published into ``repro_torch.obs`` under the
         reference's series names (``executor.<key>{executor=<name>}``), and
-        every pair request reconciled into the comm ledger.
+        every pair / X2Y request reconciled into the comm ledger.
 
 Registered executors:
 
 ``dense``     — one gather padded to the global max slot count (oracle).
 ``bucketed``  — skew-aware: one gather+reduce per capacity bucket (oracle).
-``fused``     — per bucket, ONE launch of the hand-written gather+Gram
-                kernel (``kernels.pairwise.fused_gather_gram``; its plain
-                version on a CPU table), the metric finish in torch, then
-                ONE assembly gather through the inverse-shuffle source map.
-                Non-Gram reducers fall back to bucketed, counted.
+``fused``     — per bucket, ONE launch of a hand-written gather+Gram kernel
+                (``kernels.pairwise.fused_gather_gram``: the square kernel
+                for ``run_pairs``, the rectangular one for ``run_x2y`` and
+                so for block serving; their plain versions on a CPU
+                table), the metric finish in torch, then ONE assembly
+                gather through the inverse-shuffle source map.  Non-Gram
+                reducers fall back to bucketed, counted.
 
-Later slices: ``sharded``, ``coded`` and ``streaming``; X2Y (``run_x2y``)
-and block serving (``run_block``).  A ``mesh`` raises
-``NotImplementedError``, and so does ``use_kernel=True`` on dense/bucketed
-(it reaches the ``pairwise_gram`` kernel through ``block_similarity``).
+On dense and bucketed, ``use_kernel=True`` reducers (``allpairs._block_fn``)
+compute each block with the ``pairwise_gram`` kernel, one batched launch
+per gather.  Not ported yet: ``sharded``, ``coded`` and ``streaming``, and
+``lower``; a ``mesh`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.pairwise.fused_gather_gram import fused_gather_gram
+from repro_torch.kernels.pairwise.fused_gather_gram import (
+    fused_gather_gram,
+    fused_gather_gram_rect,
+)
 from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
@@ -42,11 +52,16 @@ from repro_torch.obs import _config as _obs_config
 
 from .engine import (
     ReducerPlan,
+    _as_tables,
     _no_mesh,
     as_table,
+    block_subplan,
     bucket_arrays,
+    rect_bucket_arrays,
     run_reducers,
     run_reducers_bucketed,
+    run_reducers_x2y,
+    run_reducers_x2y_bucketed,
     uploaded,
 )
 
@@ -91,6 +106,50 @@ class Executor:
                   *, mesh=None, use_kernel: bool = False, device=None):
         """Execute the plan and assemble the (m, m) pair matrix."""
         raise NotImplementedError
+
+    def run_x2y(self, tables, plan: ReducerPlan, reducer_fn: Callable,
+                shape: tuple[int, int], *, mesh=None,
+                use_kernel: bool = False, device=None):
+        """Execute a rectangular (X2Y) plan and assemble the (mx, my[, c])
+        cross output.
+
+        ``tables`` is an (x_table, y_table) pair (or one shared table);
+        ``reducer_fn(xblock, xmask, yblock, ymask)`` emits (Lx, Ly[, c])
+        cross blocks; ``shape = (mx, my)`` sizes the assembled output."""
+        raise NotImplementedError
+
+    def run_block(self, x, sparse, reducer_fn: Callable,
+                  i0: int, i1: int, j0: int, j1: int, *, mesh=None,
+                  use_kernel: bool = False, pad_reducers_to: int = 1,
+                  pad_slots_to: int = 1, max_buckets: int = 8,
+                  device=None):
+        """Serve the ``[i0:i1) x [j0:j1)`` sub-block of the (m, m) pair
+        matrix without materializing the whole matrix.
+
+        ``sparse`` is a :class:`~repro_torch.mapreduce.engine.SparsePlan`;
+        ``reducer_fn`` is a two-sided (X2Y) reducer.  The block's reducers
+        — selected by :func:`~repro_torch.mapreduce.engine.block_subplan`
+        — run through this executor's own ``run_x2y`` on the row slices
+        ``x[i0:i1]`` and ``x[j0:j1]``; global-diagonal cells are then
+        zeroed to match the pair matrix's convention."""
+        x = as_table(x, device)
+        bx, by = i1 - i0, j1 - j0
+        sub = block_subplan(
+            sparse, i0, i1, j0, j1, pad_reducers_to=pad_reducers_to,
+            pad_slots_to=pad_slots_to, max_buckets=max_buckets)
+        if sub is None or bx == 0 or by == 0:
+            out = torch.zeros((max(bx, 0), max(by, 0)), dtype=torch.float32,
+                              device=x.device)
+        else:
+            out = self.run_x2y((x[i0:i1], x[j0:j1]), sub, reducer_fn,
+                               (bx, by), mesh=mesh, use_kernel=use_kernel,
+                               device=x.device)
+        lo, hi = max(i0, j0), min(i1, j1)
+        if lo < hi:  # the block crosses the global diagonal: zero it
+            d = torch.arange(lo, hi, device=out.device)
+            out[d - i0, d - j0] = 0.0
+        self._count("block_calls")
+        return out
 
     def stats(self) -> dict:
         """Snapshot of this instance's dispatch counters."""
@@ -145,8 +204,8 @@ def _row_bytes(table) -> tuple[int, int]:
 
 
 def _plan_valid_slots(plan) -> int:
-    """Valid gather slots the plan books — the ledger's ``plan_slots``
-    denominator.  Cached on the plan."""
+    """Valid gather slots the plan books (X + Y sides for rect plans) —
+    the ledger's ``plan_slots`` denominator.  Cached on the plan."""
     n = plan.__dict__.get("_obs_plan_slots")
     if n is None:
         n = int(np.asarray(plan.mask).sum())
@@ -163,18 +222,13 @@ def _bucket_valid_slots(plan) -> int:
     n = plan.__dict__.get("_obs_bucket_slots")
     if n is None:
         if plan.buckets:
-            n = sum(int(np.asarray(b.mask).sum()) for b in plan.buckets)
+            n = sum(int(np.asarray(b.mask).sum())
+                    + (0 if b.ymask is None else int(np.asarray(b.ymask).sum()))
+                    for b in plan.buckets)
         else:
             n = _plan_valid_slots(plan)
         object.__setattr__(plan, "_obs_bucket_slots", n)
     return n
-
-
-def _no_kernel(use_kernel: bool) -> None:
-    if use_kernel:
-        raise NotImplementedError(
-            "use_kernel=True reaches the pairwise_gram kernel, which is not "
-            "ported yet")
 
 
 _REGISTRY: dict[str, Executor] = {}
@@ -230,13 +284,27 @@ class DenseExecutor(Executor):
                   use_kernel=False, device=None):
         from .allpairs import assemble_pair_matrix
         _no_mesh(mesh)
-        _no_kernel(use_kernel)
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
                         measured_slots=_plan_valid_slots(plan))
         blocks = run_reducers(x, plan, reducer_fn, device=x.device)
         return assemble_pair_matrix(blocks, plan, m)
+
+    def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
+                use_kernel=False, device=None):
+        from .allpairs import assemble_x2y_matrix_bucketed
+        _no_mesh(mesh)
+        xt, yt = _as_tables(tables, device)
+        self._count("calls")
+        self._reconcile(plan, "x2y", xt,
+                        measured_slots=_plan_valid_slots(plan))
+        blocks = run_reducers_x2y((xt, yt), plan, reducer_fn,
+                                  device=xt.device)
+        # the plan's dense idx/mask/yidx/ymask rows are bucket-shaped, so
+        # the whole plan assembles as a single "bucket"
+        return assemble_x2y_matrix_bucketed([(plan, blocks)], shape,
+                                            device=xt.device)
 
 
 class BucketedExecutor(Executor):
@@ -255,7 +323,6 @@ class BucketedExecutor(Executor):
                   use_kernel=False, device=None):
         from .allpairs import assemble_pair_matrix_bucketed
         _no_mesh(mesh)
-        _no_kernel(use_kernel)
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
@@ -263,6 +330,19 @@ class BucketedExecutor(Executor):
         per_bucket = run_reducers_bucketed(x, plan, reducer_fn,
                                            combine="buckets", device=x.device)
         return assemble_pair_matrix_bucketed(per_bucket, m, device=x.device)
+
+    def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
+                use_kernel=False, device=None):
+        from .allpairs import assemble_x2y_matrix_bucketed
+        _no_mesh(mesh)
+        xt, yt = _as_tables(tables, device)
+        self._count("calls")
+        self._reconcile(plan, "x2y", xt,
+                        measured_slots=_bucket_valid_slots(plan))
+        per_bucket = run_reducers_x2y_bucketed(
+            (xt, yt), plan, reducer_fn, combine="buckets", device=xt.device)
+        return assemble_x2y_matrix_bucketed(per_bucket, shape,
+                                            device=xt.device)
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +365,33 @@ def _finish_fused_blocks(g, mask, metric: str):
         else:
             raise ValueError(metric)
     valid = mask[:, :, None] & mask[:, None, :]
+    return torch.where(valid, g, 0.0)
+
+
+def _take_masked(v, idx, mask):
+    """``v[idx]`` with masked slots 0; a masked slot's index is not read."""
+    return torch.where(mask, v[torch.where(mask, idx, 0).long()], 0.0)
+
+
+def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
+    """Metric post-processing of a masked rectangular cross-Gram stack.
+
+    Mirrors ``allpairs.block_similarity_x2y``.  Cross blocks carry no Gram
+    diagonal, so per-row squared norms are gathered from the table-level
+    fp32 vectors ``n2x``/``n2y`` (``None`` for ``dot``; masked slots -> 0,
+    matching the zero-masked gathers of the reference path); invalid
+    pairs -> 0."""
+    if metric != "dot":
+        gx = _take_masked(n2x, xidx, xmask)               # (Rb, Lx)
+        gy = _take_masked(n2y, yidx, ymask)               # (Rb, Ly)
+        if metric == "l2":
+            g = gx[:, :, None] + gy[:, None, :] - 2.0 * g
+        elif metric == "cosine":
+            g = g / (torch.sqrt(gx + 1e-9)[:, :, None]
+                     * torch.sqrt(gy + 1e-9)[:, None, :])
+        else:
+            raise ValueError(metric)
+    valid = xmask[:, :, None] & ymask[:, None, :]
     return torch.where(valid, g, 0.0)
 
 
@@ -374,6 +481,51 @@ class FusedExecutor(Executor):
         return self.run(x, plan, reducer_fn, device=x.device,
                         postprocess=_assemble_from_srcmap,
                         postprocess_arg=srcmap)
+
+    def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
+                use_kernel=False, device=None):
+        """Rectangular fused path: per rect bucket, independent X/Y gather
+        maps drive ONE launch of the rectangular gather+Gram kernel, and
+        ONE inverse-shuffle gather assembles the (mx, my) matrix.  Non-Gram
+        reducers fall back to the rect-bucketed path (identical outputs;
+        counted).  ``use_kernel`` is accepted for signature parity."""
+        from .allpairs import (
+            _pair_source_map_rect,
+            assemble_x2y_matrix_bucketed,
+        )
+        _no_mesh(mesh)
+        xt, yt = _as_tables(tables, device)
+        self._count("calls")
+        self._reconcile(plan, "x2y", xt,
+                        measured_slots=_bucket_valid_slots(plan))
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or not plan.buckets:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "no_buckets")
+            per_bucket = run_reducers_x2y_bucketed(
+                (xt, yt), plan, reducer_fn, combine="buckets",
+                device=xt.device)
+            return assemble_x2y_matrix_bucketed(per_bucket, shape,
+                                                device=xt.device)
+        self._count("kernel" if xt.is_cuda else "streamed")
+        mx, my = shape
+        arrays = uploaded("x2y-buckets", plan, xt,
+                          lambda dev: rect_bucket_arrays(plan, dev),
+                          ytable=yt)
+        srcmap = uploaded(
+            f"srcmap-rect:{mx}x{my}", plan, xt,
+            lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
+                                        device=dev).long(), ytable=yt)
+        n2x, n2y = (None, None) if metric == "dot" else (
+            xt.float().square().sum(-1), yt.float().square().sum(-1))
+        vals = [torch.zeros(1, dtype=torch.float32, device=xt.device)]
+        for xidx, xmsk, yidx, ymsk, _ in arrays:
+            g = fused_gather_gram_rect(xt, yt, xidx, xmsk, yidx, ymsk)
+            vals.append(_finish_rect_blocks(g, xidx, xmsk, yidx, ymsk, n2x,
+                                            n2y, metric).reshape(-1))
+        # rectangular inverse shuffle: ONE assembly gather through the
+        # host-built source map (slot 0 -> 0.0 for uncovered cells)
+        return torch.cat(vals)[srcmap]
 
 
 # ---------------------------------------------------------------------------

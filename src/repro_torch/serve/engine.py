@@ -1,15 +1,16 @@
 """``PairwiseService``: the paper-workload serving facade, similarity path.
 
-Port of ``repro.serve.engine.PairwiseService`` (``similarity`` only).  All-
-pairs similarity queries are planned through the registry planner (plans
-memoized by weight profile in ``PLAN_CACHE``) and executed on a private
-executor instance, so dispatch telemetry is scoped to the service.  Every
-response carries the reference's ``info`` keys: plan provenance, plan-cache
-hit, the fused path taken (``"kernel"`` on the card), the upload-cache
-counters and the comm-ledger reconciliation.
+Port of ``repro.serve.engine.PairwiseService``: all-pairs ``similarity``,
+rectangular ``x2y``, and block serving (``load_block_table`` / ``block``).
+Queries are planned through the registry planner (all-pairs plans memoized
+by weight profile in ``PLAN_CACHE``) and executed on a private executor
+instance, so dispatch telemetry is scoped to the service.  Every response
+carries the reference's ``info`` keys: plan provenance, plan-cache hit, the
+fused path taken (``"kernel"`` on the card), the upload-cache counters and
+the comm-ledger reconciliation.
 
-Later slices: ``some_pairs``, ``x2y``, block serving and the streaming edit
-API; ``BatchedServer`` comes with the LM stack.
+Not ported yet: ``some_pairs`` and the streaming edit API;
+``BatchedServer`` comes with the LM stack.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -63,8 +65,12 @@ class PairwiseService:
             "fused_kernel": 0,
             "fused_streamed": 0,
             "fused_fallbacks": 0,
+            "block_requests": 0,
             "wall_s": 0.0,
         }
+        self._block_table: Optional[torch.Tensor] = None  # block serving
+        self._block_schema = None
+        self._block_sparse = None
 
     def executor_stats(self) -> dict:
         """This service's private executor dispatch counters."""
@@ -173,8 +179,103 @@ class PairwiseService:
         return sims, self._info(plan, time.perf_counter() - t0, snap,
                                 workload="pairs")
 
+    def x2y(self, x, y, wx=None, wy=None):
+        """Cross similarity of an X table against a Y table through the
+        Section-10 rectangular (X2Y) schema.  Returns (sims (mx, my),
+        info) with the same provenance/telemetry contract as
+        :meth:`similarity`; every executor serves it through ``run_x2y``.
+        The X2Y plan is not memoized, as in the reference: each request
+        plans."""
+        from repro_torch.mapreduce.allpairs import x2y_similarity
+        snap = self._snap()
+        t0 = time.perf_counter()
+        with _obs_span("request", workload="x2y",
+                       executor=self.executor, tenant=self.tenant):
+            sims, plan, _schema = x2y_similarity(
+                x, y, q=self.q, wx=wx, wy=wy, metric=self.metric,
+                executor=self._executor, use_kernel=self.use_kernel,
+                device=self.device)
+            if sims.is_cuda:
+                torch.cuda.synchronize(sims.device)
+        return sims, self._info(plan, time.perf_counter() - t0, snap,
+                                workload="x2y")
+
     @property
     def padding_savings(self) -> float:
         """Aggregate dense/bucketed padded-element ratio across requests."""
         return (self.stats["dense_padded_elements"] /
                 max(self.stats["bucketed_padded_elements"], 1))
+
+    # --------------------------------------------------------- block serving
+    def load_block_table(self, x, weights=None, *, c=None):
+        """Adopt ``x`` for block-addressed serving (any executor).
+
+        Plans a hierarchical schema (``plan_a2a_hierarchical``: the flat
+        registry planner at small m, two-level super-input packing beyond)
+        and lowers it to a CSR sparse plan — O(m + assignments) host
+        state, never the (m, m) matrix — so the table can be orders of
+        magnitude larger than ``similarity`` allows.  The table goes to
+        the service's device once, as fp32.  Returns an info dict with the
+        plan provenance, including the composed optimality-gap ledger
+        (``hierarchy``) when the two-level path ran.  Serve blocks with
+        :meth:`block`."""
+        from repro_torch.core import plan_a2a_hierarchical
+        from repro_torch.mapreduce.allpairs import _sparse_plan_for
+        t0 = time.perf_counter()
+        self._block_table = torch.as_tensor(x, dtype=torch.float32,
+                                            device=self.device)
+        m = self._block_table.shape[0]
+        w = np.full(m, 1.0) if weights is None \
+            else np.asarray(weights, dtype=np.float64)
+        self._block_schema = plan_a2a_hierarchical(w, self.q, c=c)
+        self._block_sparse = _sparse_plan_for(self._block_schema)
+        dt = time.perf_counter() - t0
+        self.stats["wall_s"] += dt
+        sp = self._block_sparse
+        return {
+            "executor": self.executor,
+            "algorithm": sp.algorithm,
+            "m": m,
+            "reducers": sp.num_reducers,
+            "bins": sp.num_bins,
+            "host_entries": sp.host_entries,
+            "comm_cost": sp.comm_cost,
+            "lower_bound": sp.lower_bound,
+            "optimality_gap": sp.optimality_gap,
+            "hierarchy": self._block_schema.meta.get("hierarchy"),
+            "wall_s": dt,
+        }
+
+    def block(self, i0: int, i1: int, j0: int, j1: int):
+        """Serve one ``[i0:i1) x [j0:j1)`` sub-block of the pair matrix
+        through this service's executor (``Executor.run_block``) — only
+        the reducers covering the block run, nothing O(m^2) is built.
+        Returns ``(block, info)``; ``info["wall_s"]`` includes the
+        device's work (synchronized)."""
+        from repro_torch.mapreduce.allpairs import _block_fn_x2y
+        if self._block_table is None:
+            raise RuntimeError("call load_block_table() first")
+        t0 = time.perf_counter()
+        with _obs_span("request", workload="block",
+                       executor=self.executor, tenant=self.tenant):
+            blk = self._executor.run_block(
+                self._block_table, self._block_sparse,
+                _block_fn_x2y(self.metric), int(i0), int(i1), int(j0),
+                int(j1), use_kernel=self.use_kernel, device=self.device)
+            if blk.is_cuda:
+                torch.cuda.synchronize(blk.device)
+        dt = time.perf_counter() - t0
+        self.stats["block_requests"] += 1
+        self.stats["wall_s"] += dt
+        _OBS_REGISTRY.counter(
+            "serve.requests", executor=self.executor, workload="block",
+            tenant=self.tenant).inc()
+        _OBS_REGISTRY.histogram(
+            "serve.block_seconds", executor=self.executor,
+            tenant=self.tenant).observe(dt)
+        return blk, {
+            "executor": self.executor,
+            "block": (int(i0), int(i1), int(j0), int(j1)),
+            "block_calls": self._executor.stats().get("block_calls", 0),
+            "wall_s": dt,
+        }

@@ -32,7 +32,11 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _modules()
-    assert "repro_torch.kernels.pairwise.fused_gather_gram" in mods
+    for mod in ("kernels.pairwise.fused_gather_gram",
+                "kernels.pairwise.pairwise", "kernels.pairwise.ops",
+                "kernels.pairwise.ref", "mapreduce.skewjoin",
+                "core.hierarchy", "core.exact"):
+        assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -98,3 +102,17 @@ def test_executors_need_a_card_by_default(no_cuda, executor):
         ex.run(_table(), plan, _block_fn("dot", False))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ex.run_pairs(_table(), plan, _block_fn("dot", False), 6)
+
+
+@pytest.mark.parametrize("entry", ["x2y_similarity", "skew_join",
+                                   "pairwise_similarity_block"])
+def test_rectangular_entry_points_need_a_card_by_default(no_cuda, entry):
+    x = _table()
+    call = {
+        "x2y_similarity": lambda: port_mr.x2y_similarity(x, x[:3], q=1.0),
+        "skew_join": lambda: port_mr.skew_join(x, x[:3], q=1.0),
+        "pairwise_similarity_block": lambda: port_mr.pairwise_similarity_block(
+            x, 0, 3, 0, 3, q=1.0, weights=W),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

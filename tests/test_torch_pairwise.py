@@ -204,10 +204,17 @@ def test_mesh_is_not_ported_yet(executor):
 
 @pytest.mark.parametrize("executor", ["dense", "bucketed"])
 def test_use_kernel_on_oracles_is_not_ported_yet(executor):
-    with pytest.raises(NotImplementedError):
-        port_mr.pairwise_similarity(_table(0, 6, 3), q=1.0,
-                                    weights=np.full(6, 0.2), use_kernel=True,
-                                    executor=executor, device="cpu")
+    """Once NotImplementedError; ``pairwise_gram`` is ported now, so
+    ``use_kernel=True`` on the oracles runs its plain version here and
+    matches the reference's interpreted Pallas kernel."""
+    x, w = _table(0, 6, 3), np.full(6, 0.2)
+    ref, _, _ = ref_mr.pairwise_similarity(
+        jnp.asarray(x), q=1.0, weights=w, use_kernel=True, executor=executor)
+    got, _, _ = port_mr.pairwise_similarity(x, q=1.0, weights=w,
+                                            use_kernel=True,
+                                            executor=executor, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_registry():
