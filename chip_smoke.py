@@ -20,18 +20,33 @@ just before it and read just after):
   d=256, ``benchmarks/bench_hierarchy.py``'s Zipf a=0.6 sizes at q=1.0, two
   4096 x 4096 blocks (phase 9);
 * all-pairs with ``use_kernel=True`` on bucketed and dense ->
-  ``pairwise_gram`` (phase 10).
+  ``pairwise_gram`` (phase 10);
+* LM serving on jamba-1.5-large-398b at its published widths with the
+  depth cut to 3 layers (attention + dense FFN, Mamba + MoE, Mamba +
+  dense; 12.37 B parameters made on the card from seed 0): the prefill ->
+  ``flash_attention`` (one launch) and ``ssd_scan`` (one per Mamba layer),
+  in fp32 against the non-kernel route at B=1, S=2048 (phase 12), in bf16
+  at B=2, S=4096 with each kernel against its plain version on the
+  prefill's own operands and timed beside SDPA (phase 13), and at the
+  prefill_32k length with the batch cut to 1, again against the plain
+  versions (flash on three heads; phase 14); decode through
+  ``BatchedServer`` (4 slots, 8 requests; phase 15), which reaches no
+  kernel.
 
-Phase 1 reads the device, phase 2 builds the three kernels (one nvcc per
-source, all started together), phase 11 times the new kernels (CUDA
-events).  Any failed check raises, so the exit code is non-zero; without a
-CUDA device it exits 2 before printing any result.  The last two lines are
+Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
+source, all started together), phase 11 times the rectangular and
+pairwise kernels (CUDA events).  Any failed check raises, so the exit
+code is non-zero; without a CUDA device it exits 2 before printing any
+result.  The last two lines are
 the ``kernels`` JSON record and the device JSON record.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -42,9 +57,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import plan_a2a, plan_x2y  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash.flash_attention import (  # noqa: E402
+    flash_attention_heads,
+)
+from repro_torch.kernels.flash.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.pairwise import fused_gather_gram as fgg  # noqa: E402
 from repro_torch.kernels.pairwise import pairwise as pg  # noqa: E402
 from repro_torch.mapreduce import (  # noqa: E402
@@ -62,7 +84,15 @@ from repro_torch.mapreduce.engine import (  # noqa: E402
     bucket_arrays,
     rect_bucket_arrays,
 )
-from repro_torch.serve import PairwiseService  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_scan_chunked  # noqa: E402
+from repro_torch.kernels.ssd.ssd import ssd_scan_heads  # noqa: E402
+from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    BatchedServer,
+    PairwiseService,
+    Request,
+)
 
 M, D, Q, ZIPF_A, SEED = 4096, 256, 1.0, 1.6, 0
 # fp32: kernel and torch.bmm sum d=256 products in different orders, which
@@ -72,6 +102,20 @@ M, D, Q, ZIPF_A, SEED = 4096, 256, 1.0, 1.6, 0
 # reference.
 FP32 = dict(rtol=1e-5, atol=1e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+# LM serving: jamba-1.5-large-398b at full width, depth cut to 3 layers.
+# fp32 prefill kernels are held at the reference's own kernel tolerance
+# (tests/test_kernels.py), 2e-4.  In bf16 a kernel and its plain version
+# both work in fp32 and round the result once, so they differ by at most
+# one bf16 step (2^-8 = 3.9e-3 of the output), plus ~2^-9 of it where the
+# flash tensor-core kernel rounds P to bf16: rtol 2e-2 covers that at any
+# size and atol 2e-3 the outputs near zero.  The tolerance follows the
+# output's size: late rows of a long causal layer have |o| ~ 0.03, where
+# the reference's 3e-2 could not fail a wrong row.
+LM_ARCH, LM_LAYERS, LM_CHUNK = "jamba-1.5-large-398b", 3, 128
+LM_S_FP32, LM_S_BF16, LM_S_LONG = 2048, 4096, 32768
+LM_FP32 = dict(rtol=2e-4, atol=2e-4)
+LM_BF16 = dict(rtol=2e-2, atol=2e-3)
+LM_LONG_HEADS = (0, 31, 63)   # flash heads checked at 32k (KV heads 0, 3, 7)
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_CUDA_CORES = 67e12
 PEAK_BF16_TENSOR = 989e12
@@ -132,15 +176,17 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi}
 
 
-KERNELS = ("fused_gather_gram", "fused_gather_gram_rect", "pairwise_gram")
+KERNELS = ("fused_gather_gram", "fused_gather_gram_rect", "pairwise_gram",
+           "flash_attention", "ssd_scan")
 
 
 def phase_build() -> dict:
     t0 = time.perf_counter()
     each = _build.build_all(KERNELS, force=True)
     dt = time.perf_counter() - t0
-    log(f"phase 2 build: three nvcc sm_90a builds in parallel, {dt:.2f} s "
-        f"wall ({', '.join(f'{k} {v:.2f} s' for k, v in each.items())})")
+    log(f"phase 2 build: {len(KERNELS)} nvcc sm_90a builds in parallel, "
+        f"{dt:.2f} s wall ("
+        f"{', '.join(f'{k} {v:.2f} s' for k, v in each.items())})")
     for name in KERNELS:
         lines = _build.build_log(name).splitlines()
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in lines
@@ -299,14 +345,14 @@ def profile_request(fn, label: str) -> dict:
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log(f"{label} profile of one warm request: device busy {busy_ms:.3f} ms "
         f"of {wall_ms:.3f} ms wall under the profiler (idle share "
         f"{1 - busy_ms / wall_ms:.3f}); top device time:")
     for name, ms in top:
         log(f"  {ms:9.3f} ms  {name[:90]}")
     return {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
-            "device_top_ms": dict(top)}
+            "device_top_ms": dict(top), "device_ms_by_name": by_name}
 
 
 def phase_timing(x, schema, plan) -> dict:
@@ -368,6 +414,11 @@ INFO_KEYS = {"algorithm", "comm_cost", "lower_bound", "optimality_gap",
 
 def counts() -> dict:
     return {k: _build.launch_counts().get(k, 0) for k in KERNELS}
+
+
+def only(**launched) -> dict:
+    """The counts a path must show: these launches, none of the others."""
+    return {**dict.fromkeys(KERNELS, 0), **launched}
 
 
 def x2y_profile(kind: str, seed: int = SEED):
@@ -478,9 +529,8 @@ def phase_x2y(case: dict, kind: str, full: bool) -> dict:
     torch.cuda.synchronize()
     out["first_request_s"] = time.perf_counter() - t0
     out["launches"] = counts()
-    assert out["launches"] == {"fused_gather_gram": 0,
-                               "fused_gather_gram_rect": len(plan.buckets),
-                               "pairwise_gram": 0}, out["launches"]
+    assert out["launches"] == only(
+        fused_gather_gram_rect=len(plan.buckets)), out["launches"]
     log(f"phase {phase} {kind} X2Y path: x2y_similarity(executor='fused') "
         f"launches {out['launches']} ({len(plan.buckets)} buckets), first "
         f"call {out['first_request_s']:.3f} s incl. source map")
@@ -582,9 +632,8 @@ def phase_blocks() -> dict:
         _build.reset_launch_counts()
         blk, binfo = svc.block(i0, i1, j0, j1)       # sub-plan LRU hit
         launched = counts()
-        assert launched == {"fused_gather_gram": 0,
-                            "fused_gather_gram_rect": len(sub.buckets),
-                            "pairwise_gram": 0}, launched
+        assert launched == only(
+            fused_gather_gram_rect=len(sub.buckets)), launched
         want = oracle(xs, ys, "dot")
         lo, hi = max(i0, j0), min(i1, j1)
         if lo < hi:
@@ -640,9 +689,7 @@ def phase_pairwise_gram(x, schema, plan) -> dict:
                                     executor="bucketed", use_kernel=True)
     torch.cuda.synchronize()
     out["launches"] = counts()
-    assert out["launches"] == {"fused_gather_gram": 0,
-                               "fused_gather_gram_rect": 0,
-                               "pairwise_gram": len(plan.buckets)}, \
+    assert out["launches"] == only(pairwise_gram=len(plan.buckets)), \
         out["launches"]
     fused, _, _ = pairwise_similarity(x, q=Q, schema=schema, metric="cosine",
                                       executor="fused")
@@ -777,6 +824,393 @@ def phase_timing_new(skew, bal, blocks, x, plan) -> dict:
     return out
 
 
+# ------------------------------------------------------------ LM serving
+
+def lm_config():
+    """jamba-1.5-large-398b at its published widths (d_model 8192, 64 / 8
+    heads of 128, d_ff 24576, 16 experts top-2 on every 2nd layer,
+    ssm_state 128: 256 SSD heads of 64, vocab 65536), depth cut from 72
+    layers to the first 3 of its pattern — attention + dense FFN, Mamba +
+    MoE, Mamba + dense — so one card holds it (12.37 B parameters)."""
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+
+
+def lm_model(dtype: str, use_pallas: bool = True):
+    """The cut model with weights made on the card from seed 0 (the same
+    weights in every phase of one dtype)."""
+    flags = RuntimeFlags(param_dtype=dtype, compute_dtype=dtype,
+                         use_pallas=use_pallas)
+    t0 = time.perf_counter()
+    model = build_model(lm_config(), flags, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def lm_tokens(B: int, S: int, seed: int = SEED) -> torch.Tensor:
+    cfg = lm_config()
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def capture_lm_kernels():
+    """Record the exact operands and results of every flash / SSD kernel
+    call the prefill makes (the wrappers as ``flash.ops`` and ``ssd.ops``
+    call them)."""
+    calls = {"flash_attention": [], "ssd_scan": []}
+    orig = (flash_ops.flash_attention_heads, ssd_ops.ssd_scan_heads)
+
+    def flash(q, k, v, **kw):
+        out = orig[0](q, k, v, **kw)
+        calls["flash_attention"].append(((q, k, v), kw, out))
+        return out
+
+    def scan(x, la, b, c, **kw):
+        out = orig[1](x, la, b, c, **kw)
+        calls["ssd_scan"].append(((x, la, b, c), kw, out))
+        return out
+
+    flash_ops.flash_attention_heads, ssd_ops.ssd_scan_heads = flash, scan
+    try:
+        yield calls
+    finally:
+        flash_ops.flash_attention_heads, ssd_ops.ssd_scan_heads = orig
+
+
+def lm_plain(name: str, args, kw, heads=None):
+    """The plain version of one captured call; for flash only the query
+    ``heads`` when given (one head's 32k x 32k fp32 scores take 4.3 GB),
+    each against its own KV head."""
+    if name == "flash_attention":
+        if heads is None:
+            return mha_ref(*args, **kw)
+        q, k, v = args
+        g = q.shape[2] // k.shape[2]
+        return torch.cat([mha_ref(q[:, :, h:h + 1], k[:, :, h // g:h // g + 1],
+                                  v[:, :, h // g:h // g + 1], **kw)
+                          for h in heads], dim=2)
+    x, la, b, c = args
+    return ssd_scan_chunked(x.transpose(1, 2), la.transpose(1, 2),
+                            b.transpose(1, 2), c.transpose(1, 2),
+                            **kw).transpose(1, 2)
+
+
+def lm_check_calls(calls, tol, what: str, heads=None) -> dict:
+    """Each captured kernel result against its plain version on the same
+    operands (flash: only ``heads`` when given); per kernel the max abs
+    error and the mean |output| it is measured against."""
+    errs, mean_abs = {}, {}
+    for _, _, b, c in (args for args, _, _ in calls["ssd_scan"]):
+        # one B and one C reach the kernel as stride-0 views, not copies
+        assert all(t.stride(2) == 0 and t.stride(-1) == 1 for t in (b, c))
+    for name, recs in calls.items():
+        for args, kw, out in recs:
+            sub = heads if name == "flash_attention" else None
+            want = lm_plain(name, args, kw, sub).float()
+            got = (out if sub is None else out[:, :, list(sub)]).float()
+            torch.testing.assert_close(
+                got, want, **tol, msg=lambda m: f"{what} {name}: {m}")
+            errs[name] = max(errs.get(name, 0.0), max_err(got, want))
+            mean_abs[name] = max(mean_abs.get(name, 0.0),
+                                 float(want.abs().mean()))
+            del want, got
+    log(f"{what}: kernel==plain on the prefill's own operands "
+        f"(rtol {tol['rtol']}, atol {tol['atol']}"
+        + (f"; flash heads {list(heads)}" if heads else "") + "): "
+        + ", ".join(f"{k} {len(calls[k])} calls max_abs_err {v:.3e} "
+                    f"(mean |out| {mean_abs[k]:.3e})"
+                    for k, v in errs.items()))
+    return {"max_abs_err": errs, "mean_abs_out": mean_abs}
+
+
+def lm_work(name: str, args) -> dict:
+    """Operations and bytes one kernel call needs for this run's data.
+    Flash: 4 D operations per unmasked (query, key) pair (causal: S(S+1)/2
+    per head), q, k, v read once and o written once.  SSD: per chunk of q
+    rows, q(q+1)/2 (N + P) multiply-adds inside it and 2 q N P for the
+    carried state (2 operations each); x, y, log_a once, and the one B and
+    C shared by every head once."""
+    if name == "flash_attention":
+        q, k, v = args
+        B, S, H, D = q.shape
+        pairs = S * (S + 1) // 2
+        ops = 4 * D * pairs * B * H
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        return {"ops": ops, "bytes": nbytes}
+    x, la, b, c = args
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    ops = 0
+    for t0 in range(0, S, LM_CHUNK):
+        ql = min(LM_CHUNK, S - t0)
+        ops += 2 * (ql * (ql + 1) // 2 * (N + P) + 2 * ql * N * P)
+    ops *= B * H
+    shared = b.untyped_storage().nbytes() + c.untyped_storage().nbytes()
+    nbytes = 2 * x.numel() * x.element_size() + la.numel() * 4 + shared
+    return {"ops": ops, "bytes": nbytes}
+
+
+def sdpa_ms(q, k, v, iters: int) -> float:
+    """The library yardstick for flash: one scaled_dot_product_attention
+    call (causal, grouped KV heads) on the same tensors."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        return time_cuda(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+    except TypeError:      # torch without enable_gqa: repeat outside timing
+        g = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        return time_cuda(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters)
+
+
+def lm_kernel_times(calls, plain: bool, iters: int) -> dict:
+    """CUDA-event ms per prefill of each kernel (summed over its calls),
+    its plain version and, for flash, SDPA."""
+    out = {}
+    for name, recs in calls.items():
+        t = {"kernel_ms": 0.0, "plain_ms": 0.0 if plain else None,
+             "library_ms": None, "bound_ms": 0.0, "calls": len(recs)}
+        fn = (flash_attention_heads if name == "flash_attention"
+              else ssd_scan_heads)
+        for args, kw, _ in recs:
+            t["kernel_ms"] += time_cuda(lambda: fn(*args, **kw), iters,
+                                        warmup=1)
+            if plain:
+                t["plain_ms"] += time_cuda(
+                    lambda: lm_plain(name, args, kw), 2, warmup=1)
+            if name == "flash_attention":
+                t["library_ms"] = (t["library_ms"] or 0.0) + sdpa_ms(
+                    *args, iters)
+            w = lm_work(name, args)
+            peak = (PEAK_BF16_TENSOR if args[0].dtype == torch.bfloat16
+                    else PEAK_FP32_CUDA_CORES)
+            b_ms, t["bound_by"] = bound(w, peak)
+            t["bound_ms"] += b_ms
+        out[name] = t
+    return out
+
+
+def phase_lm_fp32() -> dict:
+    """Phase 12: the fp32 prefill on the kernel route against the
+    reference's non-kernel path (use_pallas=False: grouped attention, the
+    per-step scan) on the same weights, B=1, S=2048.  Tolerance rtol = atol
+    = 2e-3, the reference's own model-level one (tests/test_arch_smoke.py):
+    both routes are fp32 throughout (TF32 off), so they differ only by
+    summation order, ~1e-5 of logits of size ~2."""
+    model, init_s = lm_model("float32")
+    tok = lm_tokens(1, LM_S_FP32)
+    _build.reset_launch_counts()
+    with capture_lm_kernels() as calls:
+        t0 = time.perf_counter()
+        got, _, aux = model({"tokens": tok})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counts()
+    assert launched == only(flash_attention=1, ssd_scan=2), launched
+    errs = lm_check_calls(calls, LM_FP32, "phase 12 fp32")["max_abs_err"]
+    model.flags = dataclasses.replace(model.flags, use_pallas=False)
+    t0 = time.perf_counter()
+    want, _, want_aux = model({"tokens": tok})
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    e = max_err(got, want)
+    log(f"phase 12 LM fp32 prefill {LM_ARCH} depth {LM_LAYERS} B=1 "
+        f"S={LM_S_FP32}: weights made on the card in {init_s:.2f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"params); launches {launched}; kernel route {wall:.3f} s, "
+        f"use_pallas=False {wall_plain:.3f} s; logits max_abs_err "
+        f"{e:.3e} (|logits| max {float(want.abs().max()):.2f}), aux "
+        f"{float(aux):.6f} vs {float(want_aux):.6f}")
+    out = {"launches": launched, "kernel_errs": errs, "logits_err": e,
+           "wall_kernel_s": wall, "wall_plain_s": wall_plain,
+           "init_s": init_s}
+    del model, got, want, calls
+    free_cuda()
+    return out
+
+
+def phase_lm_bf16() -> dict:
+    """Phase 13: the bf16 prefill at B=2, S=4096: launch counts, each
+    kernel against its plain version on the operands the prefill handed
+    it, CUDA-event times of kernels, plain versions and SDPA, the warm
+    prefill's wall time and its device profile."""
+    model, init_s = lm_model("bfloat16")
+    tok = lm_tokens(2, LM_S_BF16)
+    model({"tokens": tok})                    # warm: cuBLAS heuristics
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with capture_lm_kernels() as calls:
+        t0 = time.perf_counter()
+        logits, _, _ = model({"tokens": tok})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counts()
+    assert launched == only(flash_attention=1, ssd_scan=2), launched
+    assert logits.shape == (2, LM_S_BF16, lm_config().padded_vocab())
+    assert bool(torch.isfinite(logits).all())
+    del logits
+    checked = lm_check_calls(calls, LM_BF16, "phase 13 bf16")
+    times = lm_kernel_times(calls, plain=True, iters=5)
+    del calls
+    prof = profile_request(lambda: model({"tokens": tok}),
+                           "phase 13 bf16 prefill")
+    split = dict.fromkeys(("flash_attention", "ssd_scan", "gemm", "other"),
+                          0.0)
+    for name, ms in prof.pop("device_ms_by_name").items():
+        kind = ("flash_attention" if "flash_attention_" in name else
+                "ssd_scan" if "ssd_scan_kernel" in name else
+                "gemm" if any(g in name.lower() for g in
+                              ("gemm", "nvjet", "xmma", "cutlass")) else
+                "other")
+        split[kind] += ms
+    prof["device_ms_by_kind"] = split
+    log("phase 13 bf16 prefill device ms by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    for name, t in times.items():
+        log(f"phase 13 {name} per prefill ({t['calls']} call(s)): kernel "
+            f"{t['kernel_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"library {t['library_ms']} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), share {t['bound_ms'] / t['kernel_ms']:.4f}")
+    log(f"phase 13 LM bf16 prefill B=2 S={LM_S_BF16}: launches {launched}; "
+        f"warm prefill {wall:.3f} s wall")
+    out = {"launches": launched, "errs": checked["max_abs_err"],
+           "mean_abs_out": checked["mean_abs_out"], "times": times,
+           "wall_s": wall, "profile": prof, "init_s": init_s}
+    del model
+    free_cuda()
+    return out
+
+
+def phase_lm_long() -> dict:
+    """Phase 14: the bf16 prefill at the prefill_32k sequence length with
+    the batch cut from 32 to 1: wall time (cold and warm), finite logits,
+    each kernel against its plain version on the operands the warm prefill
+    handed it (SSD on every head; flash on LM_LONG_HEADS, since all 64
+    heads' fp32 scores would take 275 GB), and the kernels' times there."""
+    model, _ = lm_model("bfloat16")
+    tok = lm_tokens(1, LM_S_LONG)
+    walls = []
+    for rep in range(2):
+        _build.reset_launch_counts()
+        with capture_lm_kernels() as calls:
+            t0 = time.perf_counter()
+            logits, _, _ = model({"tokens": tok})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launched = counts()
+        assert launched == only(flash_attention=1, ssd_scan=2), launched
+        assert bool(torch.isfinite(logits).all())
+        del logits
+        if rep == 0:
+            del calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    free_cuda()
+    checked = lm_check_calls(calls, LM_BF16, f"phase 14 bf16 S={LM_S_LONG}",
+                             heads=LM_LONG_HEADS)
+    times = lm_kernel_times(calls, plain=False, iters=1)
+    del calls
+    for name, t in times.items():
+        log(f"phase 14 {name} per prefill at S={LM_S_LONG}: kernel "
+            f"{t['kernel_ms']:.3f} ms, library {t['library_ms']} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"phase 14 LM bf16 prefill B=1 S={LM_S_LONG}: launches {launched}; "
+        f"wall cold {walls[0]:.3f} s, warm {walls[1]:.3f} s; logits finite; "
+        f"peak device memory {peak:.1f} GiB")
+    out = {"launches": launched, "wall_s": walls, "times": times,
+           "errs": checked["max_abs_err"],
+           "mean_abs_out": checked["mean_abs_out"], "peak_gib": peak}
+    free_cuda()
+    return out
+
+
+def phase_lm_decode() -> dict:
+    """Phase 15: BatchedServer with 4 slots answers 8 requests in bf16
+    (prompts of 16-64 tokens from numpy seed 0, 16 new tokens, max_len
+    128); per-tick decode latency.  Decode reaches no kernel (the cache
+    path is plain attention and the step recurrence, as in the
+    reference)."""
+    model, _ = lm_model("bfloat16")
+    cfg = lm_config()
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=16)
+            for i, n in enumerate(rng.integers(16, 65, 8))]
+    server = BatchedServer(model, batch_slots=4, max_len=128)
+    for r in reqs:
+        server.submit(r)
+    _build.reset_launch_counts()
+    ticks = []
+    t0 = time.perf_counter()
+    while True:
+        t1 = time.perf_counter()
+        live = server.tick()             # ends in the argmax's copy to host
+        if live == 0 and not server.queue:
+            break
+        ticks.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    assert all(r.done and len(r.out) == 16 for r in reqs), \
+        [(r.rid, r.done, len(r.out)) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
+    launched = counts()
+    assert launched == only(), launched
+    ms = np.asarray(ticks) * 1e3
+    out = {"requests": len(reqs), "ticks": len(ticks), "wall_s": wall,
+           "tick_median_ms": float(np.median(ms)),
+           "tick_p99_ms": float(np.percentile(ms, 99)),
+           "tokens": sum(len(r.out) for r in reqs), "launches": launched,
+           "prompt_lens": [len(r.prompt) for r in reqs]}
+    log(f"phase 15 BatchedServer bf16: {len(reqs)} requests (prompts "
+        f"{out['prompt_lens']}) answered, 16 tokens each, in {len(ticks)} "
+        f"ticks, {wall:.2f} s; tick median {out['tick_median_ms']:.2f} ms, "
+        f"p99 {out['tick_p99_ms']:.2f} ms; kernel launches {launched}")
+    del model, server
+    free_cuda()
+    return out
+
+
+def lm_kernel_records(lm: dict) -> list:
+    """The ``kernels`` records of the LM path: times, bound and errors of
+    the timed bf16 prefill (phase 13), with the fp32 (phase 12) and 32k
+    (phase 14) errors and the 32k times beside them."""
+    recs = []
+    for name, src, line in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash/flash_attention.py:74"),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd/ssd.py:67")):
+        t, tl = lm["bf16"]["times"][name], lm["long"]["times"][name]
+        recs.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": line,
+            "launches": lm["bf16"]["launches"][name],
+            "max_abs_err": lm["bf16"]["errs"][name],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "mean_abs_out": lm["bf16"]["mean_abs_out"][name],
+            "max_abs_err_fp32": lm["fp32"]["kernel_errs"][name],
+            "long_ms": tl["kernel_ms"],
+            "long_max_abs_err": lm["long"]["errs"][name],
+            "long_bound_ms": tl["bound_ms"],
+            "long_library_ms": tl["library_ms"],
+        })
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measured number here")
@@ -821,6 +1255,9 @@ def main() -> int:
     blocks = phase_blocks()
     pgram = phase_pairwise_gram(x, schema, plan)
     timing_new = phase_timing_new(skew, bal, blocks, x, plan)
+    free_cuda()
+    lm = {"fp32": phase_lm_fp32(), "bf16": phase_lm_bf16(),
+          "long": phase_lm_long(), "decode": phase_lm_decode()}
 
     tot = timing["totals"]
     bound_ms, bound_by = bound(work, PEAK_FP32_CUDA_CORES)
@@ -900,6 +1337,7 @@ def main() -> int:
         "bound_by": p_by,
         "library_ms": pt["bmm"],
     })
+    kernels += lm_kernel_records(lm)
     for rec in blocks["blocks"]:                  # not JSON: plan, tables
         for k in ("plan", "x", "y"):
             rec.pop(k)
@@ -915,7 +1353,7 @@ def main() -> int:
                          for k, c in (("skew", skew), ("balanced", bal))},
             "x2y_skew": x2y_skew, "x2y_serving": x2y_serving,
             "skew_join": join, "x2y_balanced": x2y_bal, "blocks": blocks,
-            "pairwise_gram": pgram, "timing_new": timing_new,
+            "pairwise_gram": pgram, "timing_new": timing_new, "lm": lm,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

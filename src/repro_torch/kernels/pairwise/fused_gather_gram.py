@@ -58,14 +58,18 @@ def reset_launch_count() -> None:
 
 @contextlib.contextmanager
 def ieee_fp32():
-    """fp32 matrix products in full fp32 (TF32 off) inside the block: the
-    1e-5 fp32 contract the plain versions are held to on the card."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """fp32 matrix products and convolutions in full fp32 (TF32 off in
+    cuBLAS and cuDNN) inside the block: the fp32 contracts the plain
+    versions are held to on the card."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,

@@ -1,0 +1,144 @@
+"""Layer blocks and stacks (port of ``repro.models.blocks``).
+
+An architecture is a repeating *pattern* of LayerSpecs (Jamba: 1 attention
++ 7 Mamba with MoE every other FFN) repeated ``n_blocks`` times, plus an
+unrolled tail.  The reference scans the repetitions with ``lax.scan`` over
+stacked weights; the port keeps one :class:`Layer` per layer, in order
+(layer ``block * len(pattern) + i`` is position ``i`` of repetition
+``block``), and runs them in a Python loop.  No remat on the serving path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from .layers import (
+    AttnSpec,
+    attn_apply,
+    attn_init_cache,
+    attn_shapes,
+    make_params,
+    mlp_apply,
+    mlp_shapes,
+    rms_norm,
+)
+from .mamba import mamba_apply, mamba_init_cache, mamba_shapes
+from .moe import moe_apply, moe_shapes
+
+__all__ = ["LayerSpec", "StackDef", "Layer", "stack_init_cache"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"          # 'attn' | 'mamba'
+    window: int = 0              # sliding window (attn only; 0 = full)
+    ffn: str = "dense"           # 'dense' | 'moe' | 'none'
+    cross: bool = False          # cross-attention (enc-dec decoder)
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class StackDef:
+    pattern: tuple[LayerSpec, ...]
+    n_blocks: int                # repetitions of the pattern
+    tail: tuple[LayerSpec, ...]  # unrolled remainder
+
+    @property
+    def num_layers(self) -> int:
+        return self.n_blocks * len(self.pattern) + len(self.tail)
+
+    def specs(self) -> list[LayerSpec]:
+        """Every layer's spec, in order."""
+        return list(self.pattern) * self.n_blocks + list(self.tail)
+
+
+def _attn_spec(spec: LayerSpec, cfg) -> AttnSpec:
+    return AttnSpec(
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim_(), window=spec.window, causal=spec.causal,
+        rope_theta=cfg.rope_theta)
+
+
+def _norm_scale(d: int, device) -> nn.Parameter:
+    """An RMSNorm gamma (fp32, zero: the norm scales by ``1 + gamma``)."""
+    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+class Layer(nn.Module):
+    """One layer's parameters under the reference's names: ``ln1``,
+    ``mixer``, and ``ln2`` / ``ffn`` unless the FFN is ``'none'``."""
+
+    def __init__(self, spec: LayerSpec, cfg, flags, device,
+                 gen: torch.Generator):
+        super().__init__()
+        if spec.cross:
+            raise NotImplementedError(
+                "cross-attention (encoder-decoder) is not ported yet; see "
+                "ROADMAP.md")
+        self.spec = spec
+        dtype, d = flags.pdtype, cfg.d_model
+        self.ln1 = _norm_scale(d, device)
+        if spec.mixer == "attn":
+            shapes = attn_shapes(d, _attn_spec(spec, cfg), dtype)
+        else:
+            shapes = mamba_shapes(d, cfg.ssm_state, dtype)
+        self.mixer = make_params(shapes, device, gen)
+        if spec.ffn != "none":
+            self.ln2 = _norm_scale(d, device)
+            if spec.ffn == "moe":
+                shapes = moe_shapes(d, cfg.d_ff, cfg.num_experts, dtype)
+            else:
+                shapes = mlp_shapes(d, cfg.d_ff, dtype,
+                                    variant=cfg.mlp_variant)
+            self.ffn = make_params(shapes, device, gen)
+
+
+def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None):
+    """One layer: ``x + mixer(norm(x))``, then ``x + ffn(norm(x))``.
+    Returns (x, new_cache, aux)."""
+    spec = layer.spec
+    h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    if spec.mixer == "attn":
+        y, mc = attn_apply(
+            layer.mixer, h, _attn_spec(spec, cfg),
+            cache=None if cache is None else cache["mixer"],
+            positions=positions, use_kernels=flags.use_pallas,
+            probs_dtype=getattr(torch, flags.attn_probs_dtype))
+    else:
+        y, mc = mamba_apply(
+            layer.mixer, h, cfg.mamba_meta(),
+            cache=None if cache is None else cache["mixer"],
+            use_kernels=flags.use_pallas, ssd_impl=flags.ssd_impl)
+    x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn != "none":
+        h = rms_norm(x, layer.ln2, cfg.norm_eps)
+        if spec.ffn == "moe":
+            y, moe_aux = moe_apply(
+                layer.ffn, h, top_k=cfg.experts_per_token,
+                capacity_factor=flags.capacity_factor)
+            aux = aux + moe_aux["load_balance"]
+        else:
+            y = mlp_apply(layer.ffn, h)
+        x = x + y
+    return x, (None if cache is None else {"mixer": mc}), aux
+
+
+def stack_init_cache(stack: StackDef, cfg, flags, batch: int, max_len: int,
+                     device) -> list:
+    """One ``{'mixer': ...}`` cache per layer, in layer order."""
+    out = []
+    for spec in stack.specs():
+        if spec.mixer == "attn":
+            mc = attn_init_cache(batch, max_len, _attn_spec(spec, cfg),
+                                 flags.cdtype, device,
+                                 kv_quant=flags.kv_quant)
+        else:
+            mc = mamba_init_cache(batch, cfg.mamba_meta(), flags.cdtype,
+                                  device)
+        out.append({"mixer": mc})
+    return out

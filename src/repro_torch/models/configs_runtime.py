@@ -1,0 +1,39 @@
+"""Runtime (non-architecture) knobs of the serving path (port of
+``repro.models.configs_runtime``).
+
+``use_pallas`` picks the kernel route: ``True`` (the default) sends prefill
+attention through ``flash_attention_heads`` and the Mamba scan through
+``ssd_scan_heads`` — each launches its hand-written kernel on CUDA tensors
+and runs its plain version on CPU tensors —, while ``False`` takes the
+reference's non-kernel path (``_grouped_attention`` and the ``ssd_impl``
+scan) on any device.  The reference's sharding and training knobs (remat,
+FSDP, sequence sharding, MoE placement, ZeRO, gradient compression) wait
+for the slices that read them (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["RuntimeFlags"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeFlags:
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    use_pallas: bool = True          # True: kernels; False: plain
+    ssd_impl: str = "step"           # 'step' (baseline) | 'chunked'
+    kv_quant: str = "none"           # 'none' | 'int8' (halves KV capacity)
+    attn_probs_dtype: str = "float32"  # 'bfloat16' halves PV-matmul traffic
+    capacity_factor: float = 1.25
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)

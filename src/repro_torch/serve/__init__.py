@@ -1,5 +1,6 @@
-"""Serving facades of the port (``PairwiseService``, similarity path)."""
+"""Serving facades of the port: ``PairwiseService`` (similarity path) and
+``BatchedServer`` (LM wave decoding)."""
 
-from .engine import PairwiseService
+from .engine import BatchedServer, PairwiseService, Request
 
-__all__ = ["PairwiseService"]
+__all__ = ["BatchedServer", "PairwiseService", "Request"]

@@ -9,12 +9,19 @@ carries the reference's ``info`` keys: plan provenance, plan-cache hit, the
 fused path taken (``"kernel"`` on the card), the upload-cache counters and
 the comm-ledger reconciliation.
 
-Not ported yet: ``some_pairs`` and the streaming edit API;
-``BatchedServer`` comes with the LM stack.
+``BatchedServer`` is wave-based greedy decoding on top of
+``LMModel.decode_step`` (port of the reference's): a wave admits up to B
+requests; all slots decode in lock-step sharing the cache write position
+(slot s's token at tick t lands at position t of its own cache lane), slots
+whose request finishes early idle until the wave drains, and the next wave
+starts with a fresh cache.  Steps run eagerly (the reference jits them).
+
+Not ported yet: ``some_pairs`` and the streaming edit API.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -26,7 +33,95 @@ from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
 from repro_torch.obs import span as _obs_span
 
-__all__ = ["PairwiseService"]
+__all__ = ["Request", "BatchedServer", "PairwiseService"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray              # (P,) int32
+    max_new_tokens: int
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    """Greedy-decoding server over B lock-step slots (wave batching).
+
+    ``device`` is where it runs (``None`` means CUDA and raises without a
+    card); the model must already live there."""
+
+    def __init__(self, model, batch_slots: int, max_len: int,
+                 eos_id: Optional[int] = None, *, device=None):
+        self.device = resolve_device(device)
+        if model.device.type != self.device.type:
+            raise ValueError(f"the model lives on {model.device}, the "
+                             f"server runs on {self.device}")
+        self.model = model
+        self.B = batch_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.queue: list[Request] = []
+        self._wave: list[Optional[Request]] = []
+        self._pending: list[list[int]] = []
+        self._pos = 0
+        self.cache = None
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _start_wave(self) -> bool:
+        if not self.queue:
+            return False
+        self._wave = [None] * self.B
+        self._pending = [[] for _ in range(self.B)]
+        for s in range(self.B):
+            if self.queue:
+                req = self.queue.pop(0)
+                self._wave[s] = req
+                self._pending[s] = list(map(int, req.prompt))
+        self.cache = self.model.init_cache(self.B, self.max_len)
+        self._pos = 0
+        return True
+
+    def tick(self) -> int:
+        """One lock-step decode; returns number of live requests."""
+        live = [s for s, r in enumerate(self._wave)
+                if r is not None and not r.done]
+        if not live:
+            if not self._start_wave():
+                return 0
+            live = [s for s, r in enumerate(self._wave) if r is not None]
+        tokens = np.zeros((self.B, 1), np.int64)
+        for s in live:
+            if self._pending[s]:
+                tokens[s, 0] = self._pending[s][0]
+            elif self._wave[s].out:
+                tokens[s, 0] = self._wave[s].out[-1]
+        logits, self.cache = self.model.decode_step(
+            self.cache, {"tokens": torch.from_numpy(tokens).to(self.device),
+                         "pos": self._pos})
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        self._pos += 1
+        for s in live:
+            req = self._wave[s]
+            if self._pending[s]:
+                self._pending[s].pop(0)
+                if not self._pending[s]:
+                    req.out.append(int(nxt[s]))   # first generated token
+            else:
+                req.out.append(int(nxt[s]))
+            hit_eos = (self.eos_id is not None and req.out
+                       and req.out[-1] == self.eos_id)
+            if (len(req.out) >= req.max_new_tokens or hit_eos or
+                    self._pos >= self.max_len):
+                req.done = True
+        return len(live)
+
+    def run(self, max_ticks: int = 100_000) -> None:
+        for _ in range(max_ticks):
+            if self.tick() == 0 and not self.queue:
+                return
 
 
 class PairwiseService:

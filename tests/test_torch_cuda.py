@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
-``fused_gather_gram`` (square), ``fused_gather_gram_rect`` (X2Y) and
-``pairwise_gram`` (the ``use_kernel=True`` Gram block), and the paths that
-run them.
+``fused_gather_gram`` (square), ``fused_gather_gram_rect`` (X2Y),
+``pairwise_gram`` (the ``use_kernel=True`` Gram block), ``flash_attention``
+and ``ssd_scan`` (the LM prefill), and the paths that run them.
 
 Run on a machine with an NVIDIA card and nvcc:
 
@@ -14,8 +14,12 @@ Tolerances: fp32 at rtol 1e-5 / atol 1e-4 — the kernel and the plain
 ``torch.bmm`` sum d products in different orders, which moves the result by
 a few fp32 ulps of the largest partial sum; a TF32 product (10-bit
 mantissa) misses this by orders of magnitude.  bf16 tables at 2e-2, as in
-the reference.
+the reference.  The attention and SSD kernels are held at the reference's
+own kernel tolerances (``tests/test_kernels.py``): 2e-4 in fp32 and 3e-2
+in bf16; the LM prefill at the reference's model-level 2e-3.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -35,7 +39,16 @@ from repro_torch.kernels.pairwise.pairwise import (
     pairwise_gram_batched,
     pairwise_gram_ref,
 )
-from repro_torch.serve import PairwiseService
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash.flash_attention import (
+    flash_attention,
+    flash_attention_heads,
+)
+from repro_torch.kernels.flash.ref import mha_ref
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ssd import ssd_scan, ssd_scan_heads
+from repro_torch.models import RuntimeFlags, build_model
+from repro_torch.serve import BatchedServer, PairwiseService, Request
 
 pytestmark = pytest.mark.gpu
 
@@ -328,3 +341,220 @@ def test_block_serving_on_the_card(cuda):
         d = torch.arange(lo, hi, device=cuda)
         want[d - i0, d - j0] = 0.0
         torch.testing.assert_close(blk, want, **FP32)
+
+
+# ------------------------------------------------------ LM prefill kernels
+
+ATTN = dict(rtol=2e-4, atol=2e-4)
+ATTN_BF16 = dict(rtol=3e-2, atol=3e-2)
+
+
+def _normal(rng, shape, dev, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
+
+
+FLASH_CASES = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window
+    (2, 100, 100, 4, 2, 64, True, 0),      # ragged S, GQA
+    (1, 128, 128, 2, 2, 128, True, 0),     # one tile exactly
+    (1, 200, 200, 4, 1, 256, True, 0),     # MQA, D=256
+    (2, 77, 77, 2, 2, 128, True, 16),      # causal sliding window
+    (1, 300, 300, 8, 2, 128, True, 100),   # window skips whole kv tiles
+    (1, 90, 130, 2, 2, 64, False, 0),      # non-causal, Sq != Skv
+    (1, 96, 96, 4, 2, 128, False, 20),     # two-sided window
+    (1, 1, 1, 1, 1, 64, True, 0),          # one token
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
+                                    window, dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(Sq * 7 + Skv + D)
+    q = _normal(rng, (B, Sq, Hq, D), cuda, dt)
+    k = _normal(rng, (B, Skv, Hkv, D), cuda, dt)
+    v = _normal(rng, (B, Skv, Hkv, D), cuda, dt)
+    before = _launches("flash_attention")
+    got = flash_attention_heads(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _launches("flash_attention") == before + 1
+    want = mha_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(ATTN if dtype == "float32" else ATTN_BF16))
+
+
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q, k, v as slices of one packed (B, S, 3, H, D) tensor: the kernel
+    reads their strides, the result equals the contiguous inputs'."""
+    rng = np.random.default_rng(5)
+    qkv = _normal(rng, (2, 150, 3, 4, 128), cuda, torch.float32)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    got = flash_attention_heads(q, k, v, causal=True)
+    want = flash_attention_heads(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    one = flash_attention(q[0, :, 1], k[0, :, 1], v[0, :, 1], causal=True)
+    torch.testing.assert_close(one, got[0, :, 1], rtol=0, atol=0)
+
+
+def test_flash_bf16_rows_off_16_bytes_take_the_fma_kernel(cuda):
+    """bf16 rows that do not start on a 16-byte boundary cannot be staged
+    as vectors for the tensor-core kernel: the FMA kernel runs them, and
+    both agree with the plain version."""
+    rng = np.random.default_rng(9)
+    q, k, v = (_normal(rng, (2, 130, 4, 128), cuda, torch.bfloat16)
+               for _ in range(3))
+    buf = torch.empty(q.numel() + 4, dtype=q.dtype, device=cuda)
+    q_off = buf[4:].view(q.shape)                 # 8 bytes off
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 == 8
+    want = mha_ref(q, k, v, causal=True).float()
+    fast = flash_attention_heads(q, k, v, causal=True)
+    slow = flash_attention_heads(q_off, k, v, causal=True)
+    torch.testing.assert_close(fast.float(), want, **ATTN_BF16)
+    torch.testing.assert_close(slow.float(), want, **ATTN_BF16)
+
+
+SSD_CASES = [
+    # B, S, H, P, N, chunk
+    (2, 300, 3, 64, 128, 128),   # ragged last chunk, the model's widths
+    (1, 64, 2, 64, 16, 16),      # the reduced configs' widths
+    (1, 7, 2, 32, 8, 8),         # S below the chunk
+    (2, 100, 3, 8, 8, 32),
+    (1, 129, 2, 64, 128, 128),   # one row into the second chunk
+]
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dev, dtype, decay=None):
+    x = _normal(rng, (B, S, H, P), dev, dtype)
+    b = _normal(rng, (B, S, H, N), dev, dtype) * N ** -0.5
+    c = _normal(rng, (B, S, H, N), dev, dtype) * N ** -0.5
+    la = (torch.full((B, S, H), decay) if decay is not None else
+          -torch.from_numpy(np.abs(rng.normal(size=(B, S, H)))
+                            .astype(np.float32)))
+    return x, la.to(dev), b, c
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S * 3 + N + P)
+    x, la, b, c = _ssd_inputs(rng, B, S, H, P, N, cuda, dt)
+    before = _launches("ssd_scan")
+    got = ssd_scan_heads(x, la, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _launches("ssd_scan") == before + 1
+    want = ssd(x, la, b, c, chunk=chunk, impl="chunked")
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(ATTN if dtype == "float32" else ATTN_BF16))
+
+
+def test_ssd_kernel_carries_state_across_chunks(cuda):
+    """Near-zero decay: every chunk's output depends on all earlier ones;
+    held against the literal per-step recurrence."""
+    rng = np.random.default_rng(0)
+    x, la, b, c = _ssd_inputs(rng, 1, 520, 2, 64, 128, cuda, torch.float32,
+                              decay=-0.01)
+    got = ssd_scan_heads(x, la, b, c, chunk=128)
+    want = ssd(x, la, b, c, impl="step")
+    torch.testing.assert_close(got, want, **ATTN)
+    one = ssd_scan(x[0, :, 1], la[0, :, 1], b[0, :, 1], c[0, :, 1])
+    torch.testing.assert_close(one, got[0, :, 1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_reads_broadcast_bc(cuda, dtype):
+    """One B and one C for all heads, as ``mamba_apply`` passes them: head
+    stride 0, not copied; the result equals the materialised inputs'."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    B, S, H, P, N = 2, 257, 8, 64, 128
+    x, la, _, _ = _ssd_inputs(rng, B, S, H, P, N, cuda, dt)
+    b1 = _normal(rng, (B, S, N), cuda, dt) * N ** -0.5
+    c1 = _normal(rng, (B, S, N), cuda, dt) * N ** -0.5
+    bh = b1[:, :, None, :].expand(B, S, H, N)
+    ch = c1[:, :, None, :].expand(B, S, H, N)
+    assert bh.stride(2) == 0
+    got = ssd_scan_heads(x, la, bh, ch)
+    want = ssd_scan_heads(x, la, bh.contiguous(), ch.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got.float(), ssd(x, la, bh, ch, impl="chunked").float(),
+        **(ATTN if dtype == "float32" else ATTN_BF16))
+
+
+def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_heads(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_heads(q, q.bfloat16(), q.bfloat16())
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    la = torch.zeros((1, 8, 2), device=cuda)
+    wide = torch.zeros((1, 8, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="N=256"):
+        ssd_scan_heads(x, la, wide, wide)
+    with pytest.raises(ValueError, match="chunk=256"):
+        ssd_scan_heads(x, la, x, x, chunk=256)
+
+
+def test_refused_launches_raise(cuda):
+    """A grid past the card's limit (B > 65,535 on a grid axis that allows
+    no more) is refused; the wrappers raise instead of returning garbage,
+    and count no launch."""
+    q = torch.zeros((65536, 1, 1, 64), device=cuda)
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        flash_attention_heads(q, q, q)
+    x = torch.zeros((65536, 1, 1, 64), device=cuda)
+    la = torch.zeros((65536, 1, 1), device=cuda)
+    with pytest.raises(RuntimeError, match="ssd_scan launch failed"):
+        ssd_scan_heads(x, la, x, x)
+    assert _build.launch_counts() == before
+
+
+def _small_lm(cuda, use_pallas, dtype="float32"):
+    # the reduced Jamba with 64-wide heads: the kernel is built for 64, 128
+    # and 256 (the reduced configs' 16 runs only on the plain route)
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b-smoke"),
+                              head_dim=64)
+    flags = RuntimeFlags(param_dtype=dtype, compute_dtype=dtype,
+                         use_pallas=use_pallas)
+    return cfg, build_model(cfg, flags, device=cuda, seed=0)
+
+
+def test_lm_prefill_goes_through_both_kernels(cuda):
+    cfg, model = _small_lm(cuda, True)
+    _, plain = _small_lm(cuda, False)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 150))).to(cuda)
+    _build.reset_launch_counts()
+    got, _, _ = model({"tokens": tokens})
+    torch.cuda.synchronize()
+    kinds = [k["mixer"] for k in cfg.layer_kinds()]
+    counts = _build.launch_counts()
+    assert counts.get("flash_attention", 0) == kinds.count("attn")
+    assert counts.get("ssd_scan", 0) == kinds.count("mamba")
+    want, _, _ = plain({"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_batched_server_on_the_card(cuda):
+    cfg, model = _small_lm(cuda, True, "bfloat16")
+    rng = np.random.default_rng(0)
+    server = BatchedServer(model, batch_slots=2, max_len=32)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=4)
+            for i, n in enumerate((3, 7, 5))]
+    for r in reqs:
+        server.submit(r)
+    server.run()
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    assert all(0 <= t < cfg.padded_vocab() for r in reqs for t in r.out)

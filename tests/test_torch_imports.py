@@ -15,7 +15,9 @@ import torch
 import repro_torch.mapreduce as port_mr
 from repro_torch.core import plan_a2a
 from repro_torch.mapreduce.allpairs import _block_fn
-from repro_torch.serve import PairwiseService
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import BatchedServer, PairwiseService
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
@@ -35,7 +37,13 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     for mod in ("kernels.pairwise.fused_gather_gram",
                 "kernels.pairwise.pairwise", "kernels.pairwise.ops",
                 "kernels.pairwise.ref", "mapreduce.skewjoin",
-                "core.hierarchy", "core.exact"):
+                "core.hierarchy", "core.exact", "configs",
+                "configs.base", "configs.jamba_1_5_large",
+                "kernels.flash.flash_attention", "kernels.flash.ops",
+                "kernels.flash.ref", "kernels.ssd.ssd", "kernels.ssd.ops",
+                "kernels.ssd.ref", "models", "models.configs_runtime",
+                "models.layers", "models.mamba", "models.moe",
+                "models.blocks", "models.lm", "serve.engine"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -116,3 +124,23 @@ def test_rectangular_entry_points_need_a_card_by_default(no_cuda, entry):
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_lm_entry_points_need_a_card_by_default(no_cuda):
+    cfg = get_config("mamba2-370m-smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedServer(model, batch_slots=1, max_len=8)
+
+
+def test_config_registry_points_at_the_port():
+    """The copied registry imports the port's own config modules."""
+    from repro_torch.configs.base import _REGISTRY, list_archs
+    assert all(m.startswith("repro_torch.configs.")
+               for m in _REGISTRY.values())
+    for arch in list_archs():
+        cfg = get_config(arch)
+        assert type(cfg).__module__ == "repro_torch.configs.base"
+        assert get_config(arch + "-smoke").name == arch + "-smoke"
