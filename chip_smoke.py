@@ -34,11 +34,14 @@ just before it and read just after):
   kernel.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
-source, all started together), phase 11 times the rectangular and
-pairwise kernels (CUDA events).  Any failed check raises, so the exit
-code is non-zero; without a CUDA device it exits 2 before printing any
-result.  The last two lines are
-the ``kernels`` JSON record and the device JSON record.
+source, all started together) and prints ptxas's registers, shared memory
+and spills of the tensor-core flash kernel and ``pairwise_gram``'s
+instantiations, phase 11 times the rectangular and pairwise kernels (CUDA
+events; ``pairwise_gram`` per bucket beside ``torch.bmm`` and its bound).
+Flash is timed beside SDPA in the same call, with its achieved TFLOP/s.
+Any failed check raises, so the exit code is non-zero; without a CUDA
+device it exits 2 before printing any result.  The last two lines are the
+``kernels`` JSON record and the device JSON record.
 """
 
 from __future__ import annotations
@@ -180,6 +183,33 @@ KERNELS = ("fused_gather_gram", "fused_gather_gram_rect", "pairwise_gram",
            "flash_attention", "ssd_scan")
 
 
+# the redesigned kernels' entry functions, by library: their -Xptxas -v
+# lines are printed one by one
+PTXAS_ENTRIES = {"flash_attention": "flash_wgmma_kernel",
+                 "pairwise_gram": "pairwise_gram_kernel"}
+
+
+def ptxas_entries(log_text: str) -> list:
+    """Per entry function of one ``-Xptxas -v`` log: registers, static
+    shared memory, stack frame and spill bytes."""
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"entry": ln.split("'")[1], "registers": None,
+                   "smem": 0, "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0}
+            out.append(cur)
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = nums[:3]
+        elif cur is not None and "Used " in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used ")[1].split()[0])
+            if "bytes smem" in ln:
+                cur["smem"] = int(ln.split(" bytes smem")[0].split()[-1])
+    return out
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     each = _build.build_all(KERNELS, force=True)
@@ -187,17 +217,23 @@ def phase_build() -> dict:
     log(f"phase 2 build: {len(KERNELS)} nvcc sm_90a builds in parallel, "
         f"{dt:.2f} s wall ("
         f"{', '.join(f'{k} {v:.2f} s' for k, v in each.items())})")
+    ptxas = {}
     for name in KERNELS:
-        lines = _build.build_log(name).splitlines()
-        regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in lines
-                       if "Used " in ln and "registers" in ln})
-        spills = sorted({ln.strip() for ln in lines if "spill" in ln
-                         and "0 bytes spill stores, 0 bytes spill loads"
-                         not in ln})
-        log(f"  {name}: {len([ln for ln in lines if 'registers' in ln])} "
-            f"instantiations, registers {regs}; non-zero spills: "
-            f"{spills or 'none'}")
-    return {"wall_s": dt, "each_s": each}
+        entries = ptxas_entries(_build.build_log(name))
+        regs = sorted({e["registers"] for e in entries})
+        spills = sorted({(e["spill_stores"], e["spill_loads"])
+                         for e in entries if e["spill_stores"]
+                         or e["spill_loads"]})
+        log(f"  {name}: {len(entries)} instantiations, registers {regs}; "
+            f"non-zero spills (stores, loads): {spills or 'none'}")
+        key = PTXAS_ENTRIES.get(name)
+        ptxas[name] = [e for e in entries if key and key in e["entry"]]
+        for e in ptxas[name]:
+            log(f"    {e['entry'][e['entry'].index(key):]}: "
+                f"{e['registers']} registers, "
+                f"static smem {e['smem']} B, stack {e['stack']} B, spills "
+                f"{e['spill_stores']} / {e['spill_loads']} B")
+    return {"wall_s": dt, "each_s": each, "ptxas": ptxas}
 
 
 def phase_kernel_vs_plain(x, plan) -> dict:
@@ -672,18 +708,26 @@ def phase_pairwise_gram(x, schema, plan) -> dict:
         g = fgg.gather_rows(x, idx, mask)
         for dtype, blocks, tol in (("float32", g, FP32),
                                    ("bfloat16", g.bfloat16(), BF16)):
-            got = pg.pairwise_gram_batched(blocks, blocks)
+            got = pg.pairwise_gram_batched(blocks, blocks)   # self-Gram
             torch.cuda.synchronize()
             want = pg.pairwise_gram_ref(blocks, blocks)
             torch.testing.assert_close(
                 got, want, **tol,
                 msg=lambda m: f"pairwise_gram bucket {b.width}: {m}")
             out["errs"][dtype] = max(out["errs"][dtype], max_err(got, want))
-            del got, want, blocks
+            # the two-table route on a copy: the same values
+            two = pg.pairwise_gram_batched(blocks, blocks.clone())
+            torch.testing.assert_close(
+                two, got, **tol,
+                msg=lambda m: f"pairwise_gram (x, y) bucket {b.width}: {m}")
+            out["self_vs_two_tables"] = max(
+                out.get("self_vs_two_tables", 0.0), max_err(two, got))
+            del got, want, blocks, two
         del g
         log(f"phase 10 pairwise_gram==plain bucket width={b.width} R={b.R}: "
             f"ok (running max fp32 {out['errs']['float32']:.3e}, bf16 "
-            f"{out['errs']['bfloat16']:.3e})")
+            f"{out['errs']['bfloat16']:.3e}); self-Gram route == (x, y) "
+            f"route on a copy, max diff {out['self_vs_two_tables']:.3e}")
     _build.reset_launch_counts()
     got, _, _ = pairwise_similarity(x, q=Q, schema=schema, metric="cosine",
                                     executor="bucketed", use_kernel=True)
@@ -758,22 +802,29 @@ def time_pairwise_gram(x, plan) -> dict:
         for k, v in (("kernel_fp32", k32), ("kernel_bf16", k16),
                      ("plain", plain), ("bmm", bmm)):
             tot[k] += v
+        b_ms, b_by = bound(pairwise_bucket_work(x, b), PEAK_FP32_CUDA_CORES)
         rows.append({"width": b.width, "R": b.R, "kernel_fp32_ms": k32,
                      "kernel_bf16_ms": k16, "plain_ms": plain,
-                     "bmm_ms": bmm})
+                     "bmm_ms": bmm, "bound_ms": b_ms, "bound_by": b_by,
+                     "ratio_to_bmm": k32 / bmm, "bound_share": b_ms / k32})
+    tot["ratio_to_bmm"] = tot["kernel_fp32"] / tot["bmm"]
     return {"buckets": rows, "totals": tot}
 
 
-def pairwise_work(x, plan) -> dict:
-    """Operations and bytes of one request's pairwise_gram launches: each
-    is a dense batched product of the gathered (R, L, d) blocks with
-    themselves — every product counts, the blocks are read once and the
-    (R, L, L) fp32 output is written once."""
+def pairwise_bucket_work(x, b) -> dict:
+    """Operations and bytes of one bucket's pairwise_gram launch: a dense
+    batched product of the gathered (R, L, d) blocks with themselves —
+    every product counts, the blocks are read once and the (R, L, L) fp32
+    output is written once."""
     d, item = x.shape[1], x.element_size()
-    ops = sum(2 * b.R * b.width * b.width * d for b in plan.buckets)
-    nbytes = sum(b.R * b.width * d * item + b.R * b.width * b.width * 4
-                 for b in plan.buckets)
-    return {"ops": ops, "bytes": nbytes}
+    return {"ops": 2 * b.R * b.width * b.width * d,
+            "bytes": b.R * b.width * d * item + b.R * b.width * b.width * 4}
+
+
+def pairwise_work(x, plan) -> dict:
+    """The same over every bucket of one request."""
+    works = [pairwise_bucket_work(x, b) for b in plan.buckets]
+    return {k: sum(w[k] for w in works) for k in ("ops", "bytes")}
 
 
 def warm_request(fn, reps: int = 5) -> float:
@@ -814,7 +865,10 @@ def phase_timing_new(skew, bal, blocks, x, plan) -> dict:
             log(f"phase 11 {name} bucket {shape} R={r['R']}: kernel fp32 "
                 f"{r['kernel_fp32_ms']:.4f} ms, bf16 "
                 f"{r['kernel_bf16_ms']:.4f} ms; plain {r['plain_ms']:.4f} "
-                f"ms; torch.bmm {r['bmm_ms']:.4f} ms")
+                f"ms; torch.bmm {r['bmm_ms']:.4f} ms"
+                + (f"; kernel / bmm {r['ratio_to_bmm']:.3f}, bound "
+                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+                   f"{r['bound_share']:.3f}" if "bound_ms" in r else ""))
         tt = t["totals"]
         log(f"phase 11 {name} per request: kernel fp32 "
             f"{tt['kernel_fp32']:.4f} ms, bf16 {tt['kernel_bf16']:.4f} ms; "
@@ -977,7 +1031,8 @@ def lm_kernel_times(calls, plain: bool, iters: int) -> dict:
     out = {}
     for name, recs in calls.items():
         t = {"kernel_ms": 0.0, "plain_ms": 0.0 if plain else None,
-             "library_ms": None, "bound_ms": 0.0, "calls": len(recs)}
+             "library_ms": None, "bound_ms": 0.0, "calls": len(recs),
+             "ops": 0}
         fn = (flash_attention_heads if name == "flash_attention"
               else ssd_scan_heads)
         for args, kw, _ in recs:
@@ -994,8 +1049,20 @@ def lm_kernel_times(calls, plain: bool, iters: int) -> dict:
                     else PEAK_FP32_CUDA_CORES)
             b_ms, t["bound_by"] = bound(w, peak)
             t["bound_ms"] += b_ms
+            t["ops"] += w["ops"]
+        # achieved rate over the work this run's data needs, and the
+        # kernel's time over its library call's in the same call
+        t["tflops"] = t["ops"] / t["kernel_ms"] / 1e9
+        t["ratio_to_library"] = (t["kernel_ms"] / t["library_ms"]
+                                 if t["library_ms"] else None)
         out[name] = t
     return out
+
+
+def ratio_text(t: dict) -> str:
+    return (f", {t['tflops']:.1f} TFLOP/s"
+            + (f", kernel / library {t['ratio_to_library']:.3f}"
+               if t["ratio_to_library"] else ""))
 
 
 def phase_lm_fp32() -> dict:
@@ -1067,7 +1134,8 @@ def phase_lm_bf16() -> dict:
     split = dict.fromkeys(("flash_attention", "ssd_scan", "gemm", "other"),
                           0.0)
     for name, ms in prof.pop("device_ms_by_name").items():
-        kind = ("flash_attention" if "flash_attention_" in name else
+        kind = ("flash_attention" if "flash_wgmma_kernel" in name
+                or "flash_attention_kernel" in name else
                 "ssd_scan" if "ssd_scan_kernel" in name else
                 "gemm" if any(g in name.lower() for g in
                               ("gemm", "nvjet", "xmma", "cutlass")) else
@@ -1080,7 +1148,8 @@ def phase_lm_bf16() -> dict:
         log(f"phase 13 {name} per prefill ({t['calls']} call(s)): kernel "
             f"{t['kernel_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
             f"library {t['library_ms']} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), share {t['bound_ms'] / t['kernel_ms']:.4f}")
+            f"({t['bound_by']}), share {t['bound_ms'] / t['kernel_ms']:.4f}"
+            + ratio_text(t))
     log(f"phase 13 LM bf16 prefill B=2 S={LM_S_BF16}: launches {launched}; "
         f"warm prefill {wall:.3f} s wall")
     out = {"launches": launched, "errs": checked["max_abs_err"],
@@ -1123,7 +1192,8 @@ def phase_lm_long() -> dict:
     for name, t in times.items():
         log(f"phase 14 {name} per prefill at S={LM_S_LONG}: kernel "
             f"{t['kernel_ms']:.3f} ms, library {t['library_ms']} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), share "
+            f"{t['bound_ms'] / t['kernel_ms']:.4f}" + ratio_text(t))
     log(f"phase 14 LM bf16 prefill B=1 S={LM_S_LONG}: launches {launched}; "
         f"wall cold {walls[0]:.3f} s, warm {walls[1]:.3f} s; logits finite; "
         f"peak device memory {peak:.1f} GiB")
@@ -1207,6 +1277,10 @@ def lm_kernel_records(lm: dict) -> list:
             "long_max_abs_err": lm["long"]["errs"][name],
             "long_bound_ms": tl["bound_ms"],
             "long_library_ms": tl["library_ms"],
+            "tflops": t["tflops"],
+            "ratio_to_library": t["ratio_to_library"],
+            "long_tflops": tl["tflops"],
+            "long_ratio_to_library": tl["ratio_to_library"],
         })
     return recs
 
@@ -1323,7 +1397,8 @@ def main() -> int:
     log(f"pairwise_gram on the use_kernel=True bucketed path: "
         f"{pgram['launches']['pairwise_gram']} launches, "
         f"{pt['kernel_fp32']:.4f} ms fp32 vs bound {p_ms:.4f} ms ({p_by}), "
-        f"share {p_ms / pt['kernel_fp32']:.3f}; torch.bmm {pt['bmm']:.4f} ms")
+        f"share {p_ms / pt['kernel_fp32']:.3f}; torch.bmm {pt['bmm']:.4f} ms "
+        f"(kernel / bmm {pt['ratio_to_bmm']:.3f})")
     kernels.append({
         "name": "pairwise_gram",
         "route": "cuda",
@@ -1336,8 +1411,18 @@ def main() -> int:
         "bound_ms": p_ms,
         "bound_by": p_by,
         "library_ms": pt["bmm"],
+        "bf16_ms": pt["kernel_bf16"],
+        "ratio_to_library": pt["ratio_to_bmm"],
+        "buckets": [{k: r[k] for k in ("width", "R", "kernel_fp32_ms",
+                                       "bmm_ms", "ratio_to_bmm",
+                                       "bound_ms", "bound_share")}
+                    for r in timing_new["pairwise_gram"]["buckets"]],
+        "ptxas": build_s["ptxas"]["pairwise_gram"],
     })
     kernels += lm_kernel_records(lm)
+    for rec in kernels:
+        if rec["name"] == "flash_attention":
+            rec["ptxas"] = build_s["ptxas"]["flash_attention"]
     for rec in blocks["blocks"]:                  # not JSON: plan, tables
         for k in ("plan", "x", "y"):
             rec.pop(k)

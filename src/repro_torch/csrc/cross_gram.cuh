@@ -1,19 +1,14 @@
-// Batched cross-Gram tiles for Hopper (sm_90a), shared by
-// fused_gather_gram_rect.cu and pairwise_gram.cu.
+// Batched cross-Gram tiles for Hopper (sm_90a), the tile of
+// fused_gather_gram_rect.cu.
 //
 // For every reducer (batch item) r:
 //
 //     out[r] = A_r . B_r^T          (Lx, Ly) fp32
 //
-// where row i of A_r and row j of B_r are rows of two row-major (m, d)
-// tables:
-//   * GATHER = true  (fused_gather_gram_rect): A_r's rows are X[xidx[r, i]]
-//     and B_r's rows Y[yidx[r, j]]; a masked slot stages zeros, a valid slot
-//     outside its table stages NaN (the kernel never reads outside a table,
-//     and the entries such a slot touches come out NaN, not silently zero);
-//   * GATHER = false (pairwise_gram): A_r is rows [r*Lx, (r+1)*Lx) of X and
-//     B_r rows [r*Ly, (r+1)*Ly) of Y, i.e. X (R, Lx, d) and Y (R, Ly, d)
-//     batches, contiguous.
+// where A_r's rows are X[xidx[r, i]] and B_r's rows Y[yidx[r, j]], rows of
+// two row-major (m, d) tables; a masked slot stages zeros, a valid slot
+// outside its table stages NaN (the kernel never reads outside a table, and
+// the entries such a slot touches come out NaN, not silently zero).
 //
 // Design (a generalisation of fused_gather_gram.cu's square tile to
 // independent widths; simple and correct first, speed is later work):
@@ -63,12 +58,12 @@ __host__ __device__ constexpr int reducers_per_block() {
 }
 
 struct Args {
-  const void* x;            // (mx, d) table, or (R*Lx, d) when !GATHER
-  const void* y;            // (my, d) table, or (R*Ly, d) when !GATHER
-  const int32_t* xidx;      // (R, Lx), GATHER only
-  const uint8_t* xmask;     // (R, Lx), GATHER only
-  const int32_t* yidx;      // (R, Ly), GATHER only
-  const uint8_t* ymask;     // (R, Ly), GATHER only
+  const void* x;            // (mx, d) table
+  const void* y;            // (my, d) table
+  const int32_t* xidx;      // (R, Lx)
+  const uint8_t* xmask;     // (R, Lx)
+  const int32_t* yidx;      // (R, Ly)
+  const uint8_t* ymask;     // (R, Ly)
   float* out;               // (R, Lx, Ly)
   long long R;
   int Lx, Ly, d, mx, my;
@@ -76,18 +71,16 @@ struct Args {
 };
 
 // Staged row source of slot `slot` of reducer r on one side.
-template <bool GATHER>
 __device__ __forceinline__ long long staged_row(
     const int32_t* idx, const uint8_t* mask, long long r, int slot, int L,
     int m) {
   const long long o = r * L + slot;
-  if (!GATHER) return o;
   if (!mask[o]) return ZERO_ROW;
   const int row = idx[o];
   return (row >= 0 && row < m) ? row : NAN_ROW;
 }
 
-template <typename Tin, int TX, int TY, bool GATHER>
+template <typename Tin, int TX, int TY>
 __global__ void __launch_bounds__(1024) cross_gram_kernel(const Args a) {
   constexpr int G = reducers_per_block<TX, TY>();
   constexpr int NR = TX + TY;                     // staged rows per reducer
@@ -114,8 +107,8 @@ __global__ void __launch_bounds__(1024) cross_gram_kernel(const Args a) {
     const int slot = is_x ? it * TX + s : jt * TY + (s - TX);
     long long v = ZERO_ROW;
     if (r < a.R && slot < (is_x ? a.Lx : a.Ly))
-      v = is_x ? staged_row<GATHER>(a.xidx, a.xmask, r, slot, a.Lx, a.mx)
-               : staged_row<GATHER>(a.yidx, a.ymask, r, slot, a.Ly, a.my);
+      v = is_x ? staged_row(a.xidx, a.xmask, r, slot, a.Lx, a.mx)
+               : staged_row(a.yidx, a.ymask, r, slot, a.Ly, a.my);
     src[e] = v;
   }
   __syncthreads();
@@ -162,7 +155,7 @@ __global__ void __launch_bounds__(1024) cross_gram_kernel(const Args a) {
     a.out[(r * a.Lx + i) * a.Ly + j] = acc;
 }
 
-template <typename Tin, int TX, int TY, bool GATHER>
+template <typename Tin, int TX, int TY>
 cudaError_t launch(Args a, cudaStream_t stream) {
   constexpr int G = reducers_per_block<TX, TY>();
   constexpr int NR = TX + TY;
@@ -172,7 +165,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const size_t shmem = static_cast<size_t>(G) * NR *
                        (LDS * sizeof(float) + sizeof(long long));
-  auto* kernel = cross_gram_kernel<Tin, TX, TY, GATHER>;
+  auto* kernel = cross_gram_kernel<Tin, TX, TY>;
   if (shmem > 48 * 1024) {    // above 48 KB only as opted-in dynamic smem
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -183,34 +176,32 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename Tin, int TX, bool GATHER>
+template <typename Tin, int TX>
 cudaError_t dispatch_y(const Args& a, cudaStream_t s) {
-  if (a.Ly <= 1) return launch<Tin, TX, 1, GATHER>(a, s);
-  if (a.Ly <= 2) return launch<Tin, TX, 2, GATHER>(a, s);
-  if (a.Ly <= 4) return launch<Tin, TX, 4, GATHER>(a, s);
-  if (a.Ly <= 8) return launch<Tin, TX, 8, GATHER>(a, s);
-  if (a.Ly <= 16) return launch<Tin, TX, 16, GATHER>(a, s);
-  return launch<Tin, TX, 32, GATHER>(a, s);
+  if (a.Ly <= 1) return launch<Tin, TX, 1>(a, s);
+  if (a.Ly <= 2) return launch<Tin, TX, 2>(a, s);
+  if (a.Ly <= 4) return launch<Tin, TX, 4>(a, s);
+  if (a.Ly <= 8) return launch<Tin, TX, 8>(a, s);
+  if (a.Ly <= 16) return launch<Tin, TX, 16>(a, s);
+  return launch<Tin, TX, 32>(a, s);
 }
 
-template <typename Tin, bool GATHER>
+template <typename Tin>
 cudaError_t dispatch(const Args& a, cudaStream_t s) {
-  if (a.Lx <= 1) return dispatch_y<Tin, 1, GATHER>(a, s);
-  if (a.Lx <= 2) return dispatch_y<Tin, 2, GATHER>(a, s);
-  if (a.Lx <= 4) return dispatch_y<Tin, 4, GATHER>(a, s);
-  if (a.Lx <= 8) return dispatch_y<Tin, 8, GATHER>(a, s);
-  if (a.Lx <= 16) return dispatch_y<Tin, 16, GATHER>(a, s);
-  return dispatch_y<Tin, 32, GATHER>(a, s);
+  if (a.Lx <= 1) return dispatch_y<Tin, 1>(a, s);
+  if (a.Lx <= 2) return dispatch_y<Tin, 2>(a, s);
+  if (a.Lx <= 4) return dispatch_y<Tin, 4>(a, s);
+  if (a.Lx <= 8) return dispatch_y<Tin, 8>(a, s);
+  if (a.Lx <= 16) return dispatch_y<Tin, 16>(a, s);
+  return dispatch_y<Tin, 32>(a, s);
 }
 
-// Checks shared by both entry points, then the dtype dispatch.
-template <bool GATHER>
-int run(const Args& a, int is_bf16, void* stream) {
+// Checks of the entry point, then the dtype dispatch.
+inline int run(const Args& a, int is_bf16, void* stream) {
   if (a.R <= 0 || a.Lx <= 0 || a.Ly <= 0) return 0;
   if (a.d <= 0 || a.mx < 0 || a.my < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, GATHER>(a, s)
-                 : dispatch<float, GATHER>(a, s);
+  return is_bf16 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s);
 }
 
 }  // namespace cross_gram

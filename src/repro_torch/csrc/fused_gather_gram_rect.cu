@@ -51,7 +51,7 @@ int fused_gather_gram_rect_launch(const void* x, const void* y, int is_bf16,
   a.d = d;
   a.mx = mx;
   a.my = my;
-  return cross_gram::run<true>(a, is_bf16, stream);
+  return cross_gram::run(a, is_bf16, stream);
 }
 
 const char* fused_gather_gram_rect_error_string(int err) {

@@ -8,9 +8,10 @@ padded-key masks, fp32 scores and accumulator, output in q's dtype.
 ``flash_attention_heads`` is the wrapper over the model's ``(B, S, H, D)``
 layout with grouped KV heads: on CUDA tensors it launches the hand-written
 kernel in ``csrc/flash_attention.cu`` once (built for ``sm_90a`` at first
-use; see that file for its bound and design: bf16 with D of 64 or 128 and
-16-byte-aligned rows runs on the tensor cores, everything else in fp32
-FMA) or raises; on CPU tensors it
+use; see that file for its bound and design: bf16 with D of 64 or 128,
+rows on 16-byte boundaries and non-zero strides that are multiples of 16
+bytes runs on the tensor cores, through TMA and wgmma; everything else in
+fp32 FMA) or raises; on CPU tensors it
 runs ``mha_ref``, the plain version.  There is no fallback from the card to
 the plain version.  ``flash_attention`` keeps the reference's one-head
 signature on top of it.  Forward only, like the reference.

@@ -12,10 +12,10 @@ once per bucket.
 
 ``pairwise_gram_batched`` is the wrapper: on CUDA tensors it launches the
 hand-written kernel in ``csrc/pairwise_gram.cu`` (built for ``sm_90a`` at
-first use; see that file and ``csrc/cross_gram.cuh`` for its bound and
-design) or raises; on CPU tensors it runs ``pairwise_gram_ref``, the plain
-PyTorch version (``ref.py``).  There is no fallback from the card to the
-plain version.  fp32 products are plain FMA on the card, never TF32.
+first use; see that file for its bound and design) or raises; on CPU
+tensors it runs ``pairwise_gram_ref``, the plain PyTorch version
+(``ref.py``).  There is no fallback from the card to the plain version.
+fp32 products are plain FMA on the card, never TF32.
 """
 
 from __future__ import annotations
@@ -28,10 +28,22 @@ from .. import _build
 from .fused_gather_gram import _cuda_operands, _device_of, _stream
 from .ref import pairwise_gram_ref
 
-__all__ = ["pairwise_gram", "pairwise_gram_batched", "pairwise_gram_ref"]
+__all__ = ["pairwise_gram", "pairwise_gram_batched", "pairwise_gram_ref",
+           "same_operand"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = [_P, _P, _I, _P, _LL, _I, _I, _I, _P]
+_ARGS = [_P, _P, _I, _P, _LL, _I, _I, _I, _I, _P]
+
+
+def same_operand(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether ``x`` and ``y`` are one tensor: the same storage, offset,
+    dtype, shape and strides (two views made alike count, as the vmap rule
+    makes them for ``pairwise_gram(b, b)``)."""
+    return x is y or (
+        x.device == y.device and x.dtype == y.dtype
+        and x.shape == y.shape and x.stride() == y.stride()
+        and x.storage_offset() == y.storage_offset()
+        and x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr())
 
 
 def pairwise_gram_batched(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -40,14 +52,18 @@ def pairwise_gram_batched(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     CPU tensors run the plain version; CUDA tensors (fp32 or bf16, one
     dtype, one device) launch the kernel once or raise.  Non-contiguous
-    operands are made contiguous first."""
+    operands are made contiguous first.  When ``y`` is ``x``
+    (:func:`same_operand`) the kernel takes the self-Gram route: one
+    pointer, each block row read once for both sides."""
     if (x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0]
             or x.shape[2] != y.shape[2]):
         raise ValueError(f"want x (B, M, K), y (B, N, K); got "
                          f"{tuple(x.shape)}, {tuple(y.shape)}")
     if _device_of(x) == "cpu":
         return pairwise_gram_ref(x, y)
-    x, y = x.contiguous(), y.contiguous()
+    self_gram = same_operand(x, y)
+    x = x.contiguous()
+    y = x if self_gram else y.contiguous()
     _cuda_operands([x, y], [])
     B, M, K = x.shape
     N = y.shape[1]
@@ -59,9 +75,10 @@ def pairwise_gram_batched(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         _build.launch(
             "pairwise_gram", _ARGS,
-            (x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-             out.data_ptr(), B, M, N, K, _stream(x)),
-            what=f"B={B}, M={M}, N={N}, K={K}")
+            (x.data_ptr(), None if self_gram else y.data_ptr(),
+             int(x.dtype == torch.bfloat16), out.data_ptr(), B, M, N, K,
+             int(self_gram), _stream(x)),
+            what=f"B={B}, M={M}, N={N}, K={K}, self_gram={self_gram}")
     return out
 
 

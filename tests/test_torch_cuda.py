@@ -245,42 +245,88 @@ def test_rect_kernel_edges(cuda):
 
 
 PAIRWISE_CASES = [
-    (1000, 1, 1, 64),
-    (300, 2, 2, 33),
+    (1000, 1, 1, 64),       # B not a multiple of the 32 reducers per block
+    (300, 2, 2, 33),        # rows off 16 bytes: element loads
     (129, 4, 4, 256),
     (65, 8, 8, 256),
     (33, 16, 16, 256),
+    (77, 16, 16, 256),      # 77 = 9 blocks of 8 reducers + 5
     (17, 32, 32, 256),
+    (13, 32, 32, 100),      # 13 = 3 blocks of 4 reducers + 1; K % 8 != 0
     (5, 37, 41, 256),
     (2, 130, 70, 100),
 ]
 
 
+def _spy_launches(monkeypatch):
+    """Record the arguments of every ``_build.launch`` call."""
+    seen = []
+    real = _build.launch
+
+    def spy(name, argtypes, args, what=""):
+        seen.append((name, args))
+        return real(name, argtypes, args, what)
+    monkeypatch.setattr(_build, "launch", spy)
+    return seen
+
+
 @pytest.mark.parametrize("B,M,N,K", PAIRWISE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pairwise_gram_matches_plain(cuda, B, M, N, K, dtype):
+@pytest.mark.parametrize("route", ["self", "distinct"])
+def test_pairwise_gram_matches_plain(cuda, monkeypatch, B, M, N, K, dtype,
+                                     route):
+    """``(x, x)`` takes the self-Gram route (one pointer, the flag set),
+    distinct ``(x, y)`` the two-table one; both equal the plain version."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(B * 7 + M)
     x = torch.randn(B, M, K, generator=g).to(cuda, dt)
-    y = torch.randn(B, N, K, generator=g).to(cuda, dt)
+    y = x if route == "self" else torch.randn(B, N, K, generator=g).to(
+        cuda, dt)
+    seen = _spy_launches(monkeypatch)
     before = _launches("pairwise_gram")
     got = pairwise_gram_batched(x, y)
     torch.cuda.synchronize()
     assert _launches("pairwise_gram") == before + 1
-    assert got.shape == (B, M, N) and got.dtype == torch.float32
+    (name, args), = seen
+    assert name == "pairwise_gram"
+    if route == "self":
+        assert args[1] is None and args[8] == 1      # y not passed, flag set
+    else:
+        assert args[1] == y.data_ptr() and args[8] == 0
+    assert got.shape == (B, M, y.shape[1]) and got.dtype == torch.float32
     torch.testing.assert_close(got, pairwise_gram_ref(x, y),
                                **(FP32 if dtype == "float32" else BF16))
+    if route == "self":
+        # the same values as the two-table route on a copy of x
+        torch.testing.assert_close(got, pairwise_gram_batched(x, x.clone()),
+                                   **(FP32 if dtype == "float32" else BF16))
 
 
-def test_pairwise_gram_under_vmap_is_one_launch(cuda):
+def test_pairwise_gram_under_vmap_is_one_launch(cuda, monkeypatch):
     x = torch.randn(40, 12, 64, device=cuda)
+    seen = _spy_launches(monkeypatch)
     before = _launches("pairwise_gram")
     got = torch.func.vmap(lambda b: pairwise_gram(b, b))(x)
     assert _launches("pairwise_gram") == before + 1
+    assert seen[-1][1][1] is None              # the vmap rule's views: self
     torch.testing.assert_close(got, pairwise_gram_ref(x, x), **FP32)
     single = pairwise_gram(x[3], x[5])
     torch.testing.assert_close(single, pairwise_gram_ref(x[3], x[5]),
                                **FP32)
+
+
+def test_pairwise_gram_expanded_batch(cuda):
+    """An unbatched side under vmap reaches the kernel as a stride-0
+    ``expand``; so does an expanded batch passed as both sides."""
+    w = torch.randn(12, 64, device=cuda)
+    ys = torch.randn(30, 9, 64, device=cuda)
+    got = torch.func.vmap(lambda b: pairwise_gram(w, b))(ys)
+    torch.testing.assert_close(got, pairwise_gram_ref(w.expand(30, 12, 64),
+                                                      ys), **FP32)
+    e = w.expand(30, 12, 64)
+    assert e.stride(0) == 0
+    torch.testing.assert_close(pairwise_gram_batched(e, e),
+                               pairwise_gram_ref(e, e), **FP32)
 
 
 @pytest.mark.parametrize("executor", ["dense", "bucketed"])
@@ -364,6 +410,14 @@ FLASH_CASES = [
     (1, 90, 130, 2, 2, 64, False, 0),      # non-causal, Sq != Skv
     (1, 96, 96, 4, 2, 128, False, 20),     # two-sided window
     (1, 1, 1, 1, 1, 64, True, 0),          # one token
+    # the tensor-core kernel's edges: 128-row q tiles, 128-row kv tiles
+    (1, 129, 129, 2, 1, 128, True, 0),     # one row past a q tile
+    (2, 255, 255, 2, 2, 64, True, 0),      # one row short of two q tiles
+    (1, 100, 300, 4, 2, 128, False, 0),    # Skv crosses kv tiles, Sq != Skv
+    (1, 200, 260, 2, 1, 64, True, 0),      # causal, Sq != Skv
+    (1, 400, 400, 2, 1, 128, True, 200),   # window ends inside a kv tile
+    (1, 300, 300, 2, 2, 64, False, 150),   # two-sided, inside a kv tile
+    (1, 256, 256, 16, 2, 128, True, 0),    # Hq / Hkv = 8, as in Jamba
 ]
 
 
@@ -399,6 +453,24 @@ def test_flash_kernel_reads_strided_heads(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     one = flash_attention(q[0, :, 1], k[0, :, 1], v[0, :, 1], causal=True)
     torch.testing.assert_close(one, got[0, :, 1], rtol=0, atol=0)
+
+
+def test_flash_bf16_kernel_reads_strided_heads(cuda):
+    """bf16 q, k, v as slices of one packed (B, S, 3, H, D) tensor: the
+    tensor maps see non-contiguous strides (multiples of 16 bytes, heads
+    nearer than rows); the result equals the contiguous inputs' exactly
+    and the plain version's within tolerance."""
+    rng = np.random.default_rng(11)
+    for D in (64, 128):
+        qkv = _normal(rng, (2, 150, 3, 4, D), cuda, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        assert not q.is_contiguous() and q.stride(1) * 2 % 16 == 0
+        got = flash_attention_heads(q, k, v, causal=True)
+        want = flash_attention_heads(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(
+            got.float(), mha_ref(q, k, v, causal=True).float(), **ATTN_BF16)
 
 
 def test_flash_bf16_rows_off_16_bytes_take_the_fma_kernel(cuda):

@@ -23,9 +23,11 @@ from repro.kernels.pairwise.pairwise import pairwise_gram as jax_gram
 from repro.kernels.pairwise.ref import pairwise_ref as jax_pairwise_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.pairwise import ops
+from repro_torch.kernels.pairwise import pairwise as pairwise_mod
 from repro_torch.kernels.pairwise.pairwise import (
     pairwise_gram,
     pairwise_gram_batched,
+    same_operand,
 )
 from repro_torch.kernels.pairwise.ref import pairwise_gram_ref, pairwise_ref
 from repro_torch.mapreduce.allpairs import block_similarity
@@ -163,3 +165,39 @@ def test_use_kernel_cosine_pins_the_clip_epsilon():
                              metric="cosine", use_kernel=False)
     assert abs(float(kernel[0, 0]) - 1.0) < 1e-5        # clip: exact ratio
     assert float(plain[0, 0]) < 1e-3                    # +1e-9 dominates
+
+
+def test_same_operand_detects_one_tensor_in_two_views():
+    """The wrapper's self-Gram test: one storage, offset, dtype, shape and
+    strides — also two view objects made alike — and nothing else."""
+    x = torch.randn(6, 5, 8)
+    assert same_operand(x, x)
+    assert same_operand(x, x[:])                        # a second view object
+    assert same_operand(x.movedim(0, 0), x.movedim(0, 0))
+    e = torch.randn(5, 8)
+    assert same_operand(e.expand(6, 5, 8), e.expand(6, 5, 8))
+    assert not same_operand(x, x.clone())               # equal values, a copy
+    assert not same_operand(x, x[1:])                   # other offset, shape
+    assert not same_operand(x[:, :4], x[:, 1:])         # other offset
+    assert not same_operand(x.transpose(1, 2),          # other strides
+                            x.view(6, 8, 5))
+    assert not same_operand(x, x.view(torch.int32))     # other dtype
+
+
+def test_vmap_rule_hands_the_kernel_one_operand(monkeypatch):
+    """Under vmap, ``pairwise_gram(b, b)`` reaches the batched wrapper as
+    two views that ``same_operand`` takes for one (the kernel's self-Gram
+    route); ``pairwise_gram(w, b)`` does not."""
+    seen = []
+    real = pairwise_mod.pairwise_gram_batched
+
+    def spy(x, y):
+        seen.append(same_operand(x, y))
+        return real(x, y)
+    monkeypatch.setattr(pairwise_mod, "pairwise_gram_batched", spy)
+    xs = torch.randn(7, 4, 16)
+    got = torch.func.vmap(lambda b: pairwise_gram(b, b))(xs)
+    torch.testing.assert_close(got, pairwise_gram_ref(xs, xs))
+    w = torch.randn(4, 16)
+    torch.func.vmap(lambda b: pairwise_gram(w, b))(xs)
+    assert seen == [True, False]
