@@ -35,10 +35,15 @@ just before it and read just after):
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
 source, all started together) and prints ptxas's registers, shared memory
-and spills of the tensor-core flash kernel and ``pairwise_gram``'s
-instantiations, phase 11 times the rectangular and pairwise kernels (CUDA
-events; ``pairwise_gram`` per bucket beside ``torch.bmm`` and its bound).
-Flash is timed beside SDPA in the same call, with its achieved TFLOP/s.
+and spills of the tensor-core flash kernel, the SSD kernels and the
+instantiations of ``pairwise_gram`` and ``fused_gather_gram``, phase 6
+times ``fused_gather_gram`` per bucket beside ``torch.bmm``, its bound and
+the table bytes its gather streams from L2, phase 11 times the rectangular
+and pairwise kernels (CUDA events; ``pairwise_gram`` per bucket beside
+``torch.bmm`` and its bound), and the summary sets ``fused_gather_gram``
+beside ``pairwise_gram`` per bucket.  Flash is timed beside SDPA in the
+same call; flash and SSD with their ms per launch, share of bound and
+achieved TFLOP/s.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device it exits 2 before printing any result.  The last two lines are the
 ``kernels`` JSON record and the device JSON record.
@@ -186,7 +191,9 @@ KERNELS = ("fused_gather_gram", "fused_gather_gram_rect", "pairwise_gram",
 # the redesigned kernels' entry functions, by library: their -Xptxas -v
 # lines are printed one by one
 PTXAS_ENTRIES = {"flash_attention": "flash_wgmma_kernel",
-                 "pairwise_gram": "pairwise_gram_kernel"}
+                 "pairwise_gram": "pairwise_gram_kernel",
+                 "fused_gather_gram": "fused_gather_gram_kernel",
+                 "ssd_scan": "ssd_scan_"}
 
 
 def ptxas_entries(log_text: str) -> list:
@@ -342,19 +349,24 @@ def phase_serving() -> list:
     return walls
 
 
+def bucket_work(x, b) -> dict:
+    """Operations and bytes one bucket's fused_gather_gram launch needs:
+    products over the valid pairs i <= j only (the Gram block is
+    symmetric: n (n + 1) / 2 dot products of d multiply-adds for n valid
+    slots); idx (int32) and mask (uint8) read once, every (R, L, L) fp32
+    output entry written once (the table is counted once per request, in
+    ``work_model``)."""
+    n = b.mask.sum(axis=1).astype(np.int64)
+    return {"ops": x.shape[1] * int((n * (n + 1)).sum()),
+            "bytes": b.R * b.width * 5 + b.R * b.width * b.width * 4}
+
+
 def work_model(x, plan) -> dict:
-    """Operations and bytes one request's fused_gather_gram launches need:
-    products over valid pairs only; table read once, idx (int32) and mask
-    (uint8) read once, every (R, L, L) fp32 output entry written once."""
-    ops = 0
-    out_bytes = 0
-    in_bytes = x.shape[0] * x.shape[1] * x.element_size()
-    for b in plan.buckets:
-        n = b.mask.sum(axis=1).astype(np.int64)
-        ops += 2 * x.shape[1] * int((n * n).sum())
-        in_bytes += b.R * b.width * 5
-        out_bytes += b.R * b.width * b.width * 4
-    return {"ops": ops, "bytes": in_bytes + out_bytes}
+    """The same over one request's launches, with the table read once."""
+    works = [bucket_work(x, b) for b in plan.buckets]
+    return {"ops": sum(w["ops"] for w in works),
+            "bytes": x.shape[0] * x.shape[1] * x.element_size()
+            + sum(w["bytes"] for w in works)}
 
 
 def bound(work: dict, peak_ops: float) -> tuple:
@@ -408,12 +420,27 @@ def phase_timing(x, schema, plan) -> dict:
         tot["kernel_bf16"] += k16
         tot["plain"] += plain
         tot["bmm"] += bmm
+        # the bound as defined for the request (the table counted once per
+        # request), and beside it the table bytes the kernel's schedule
+        # stages from L2: modelled from the plan (gather_bytes), not
+        # measured on the card
+        b_ms, b_by = bound(bucket_work(x, b), PEAK_FP32_CUDA_CORES)
+        staged = fgg.gather_bytes(b.mask, x.shape[1], x.element_size())
+        tot["modelled_gather_bytes"] = (
+            tot.get("modelled_gather_bytes", 0) + staged)
         rows.append({"width": b.width, "R": b.R, "kernel_fp32_ms": k32,
                      "kernel_bf16_ms": k16, "plain_ms": plain,
-                     "bmm_ms": bmm})
+                     "bmm_ms": bmm, "ratio_to_bmm": k32 / bmm,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_share": b_ms / k32,
+                     "modelled_gather_bytes": staged})
         log(f"phase 6 bucket width={b.width} R={b.R}: kernel fp32 "
             f"{k32:.4f} ms, bf16 {k16:.4f} ms; plain {plain:.4f} ms; "
-            f"torch.bmm on pre-gathered blocks {bmm:.4f} ms")
+            f"torch.bmm on pre-gathered blocks {bmm:.4f} ms (kernel / bmm "
+            f"{k32 / bmm:.3f}); bound {b_ms:.4f} ms ({b_by}), share "
+            f"{b_ms / k32:.3f}; the schedule stages {staged / 1e9:.3f} GB "
+            f"of table rows from L2 (modelled from the plan: "
+            f"{staged / k32 / 1e9:.2f} TB/s if all of it moved)")
     # a warmed request: plan and source map cached, device work + launches
     t = []
     for _ in range(5):
@@ -812,12 +839,13 @@ def time_pairwise_gram(x, plan) -> dict:
 
 
 def pairwise_bucket_work(x, b) -> dict:
-    """Operations and bytes of one bucket's pairwise_gram launch: a dense
-    batched product of the gathered (R, L, d) blocks with themselves —
-    every product counts, the blocks are read once and the (R, L, L) fp32
-    output is written once."""
+    """Operations and bytes of one bucket's pairwise_gram launch on the
+    self-Gram route: the gathered (R, L, d) blocks with themselves, the
+    symmetric products i <= j only (L (L + 1) / 2 dot products of d
+    multiply-adds per block); the blocks are read once and the (R, L, L)
+    fp32 output is written once."""
     d, item = x.shape[1], x.element_size()
-    return {"ops": 2 * b.R * b.width * b.width * d,
+    return {"ops": b.R * b.width * (b.width + 1) * d,
             "bytes": b.R * b.width * d * item + b.R * b.width * b.width * 4}
 
 
@@ -825,6 +853,31 @@ def pairwise_work(x, plan) -> dict:
     """The same over every bucket of one request."""
     works = [pairwise_bucket_work(x, b) for b in plan.buckets]
     return {k: sum(w[k] for w in works) for k in ("ops", "bytes")}
+
+
+def fgg_buckets(timing, timing_new) -> list:
+    """Per bucket of the m=4096 request: fused_gather_gram beside
+    torch.bmm and pairwise_gram on the pre-gathered blocks (phase 11),
+    its share of bound and the table bytes its schedule stages (modelled
+    from the plan)."""
+    pg_ms = {r["width"]: r["kernel_fp32_ms"]
+             for r in timing_new["pairwise_gram"]["buckets"]}
+    rows = []
+    for r in timing["buckets"]:
+        rec = {k: r[k] for k in ("width", "R", "kernel_fp32_ms",
+                                 "kernel_bf16_ms", "bmm_ms", "ratio_to_bmm",
+                                 "bound_ms", "bound_share",
+                                 "modelled_gather_bytes")}
+        rec["pairwise_gram_ms"] = pg_ms[r["width"]]
+        rec["ratio_to_pairwise_gram"] = r["kernel_fp32_ms"] / pg_ms[r["width"]]
+        rows.append(rec)
+        log(f"fused_gather_gram bucket width={r['width']}: fp32 "
+            f"{r['kernel_fp32_ms']:.4f} ms, / torch.bmm "
+            f"{r['ratio_to_bmm']:.3f}, / pairwise_gram "
+            f"{rec['ratio_to_pairwise_gram']:.3f}, share of bound "
+            f"{r['bound_share']:.3f}, L2 gather (modelled) "
+            f"{r['modelled_gather_bytes'] / 1e9:.3f} GB")
+    return rows
 
 
 def warm_request(fn, reps: int = 5) -> float:
@@ -957,8 +1010,10 @@ def lm_plain(name: str, args, kw, heads=None):
 def lm_check_calls(calls, tol, what: str, heads=None) -> dict:
     """Each captured kernel result against its plain version on the same
     operands (flash: only ``heads`` when given); per kernel the max abs
-    error and the mean |output| it is measured against."""
-    errs, mean_abs = {}, {}
+    error, the plain value at that error (in bf16, one rounding step of a
+    value in [2^e, 2^(e+1)) is 2^(e-7)) and the mean |output| it is
+    measured against."""
+    errs, at, mean_abs = {}, {}, {}
     for _, _, b, c in (args for args, _, _ in calls["ssd_scan"]):
         # one B and one C reach the kernel as stride-0 views, not copies
         assert all(t.stride(2) == 0 and t.stride(-1) == 1 for t in (b, c))
@@ -969,17 +1024,22 @@ def lm_check_calls(calls, tol, what: str, heads=None) -> dict:
             got = (out if sub is None else out[:, :, list(sub)]).float()
             torch.testing.assert_close(
                 got, want, **tol, msg=lambda m: f"{what} {name}: {m}")
-            errs[name] = max(errs.get(name, 0.0), max_err(got, want))
+            err = max_err(got, want)
+            if err >= errs.get(name, 0.0):
+                errs[name] = err
+                at[name] = (float(want.flatten()[
+                    (got - want).abs().argmax()]) if got.numel() else 0.0)
             mean_abs[name] = max(mean_abs.get(name, 0.0),
                                  float(want.abs().mean()))
             del want, got
     log(f"{what}: kernel==plain on the prefill's own operands "
         f"(rtol {tol['rtol']}, atol {tol['atol']}"
         + (f"; flash heads {list(heads)}" if heads else "") + "): "
-        + ", ".join(f"{k} {len(calls[k])} calls max_abs_err {v:.3e} "
-                    f"(mean |out| {mean_abs[k]:.3e})"
-                    for k, v in errs.items()))
-    return {"max_abs_err": errs, "mean_abs_out": mean_abs}
+        + ", ".join(f"{k} {len(calls[k])} calls max_abs_err {v:.3e} at "
+                    f"a plain value of {at[k]:.4g} (mean |out| "
+                    f"{mean_abs[k]:.3e})" for k, v in errs.items()))
+    return {"max_abs_err": errs, "value_at_max_err": at,
+            "mean_abs_out": mean_abs}
 
 
 def lm_work(name: str, args) -> dict:
@@ -1060,7 +1120,8 @@ def lm_kernel_times(calls, plain: bool, iters: int) -> dict:
 
 
 def ratio_text(t: dict) -> str:
-    return (f", {t['tflops']:.1f} TFLOP/s"
+    return (f", {t['kernel_ms'] / t['calls']:.3f} ms per launch, "
+            f"{t['tflops']:.1f} TFLOP/s"
             + (f", kernel / library {t['ratio_to_library']:.3f}"
                if t["ratio_to_library"] else ""))
 
@@ -1136,7 +1197,7 @@ def phase_lm_bf16() -> dict:
     for name, ms in prof.pop("device_ms_by_name").items():
         kind = ("flash_attention" if "flash_wgmma_kernel" in name
                 or "flash_attention_kernel" in name else
-                "ssd_scan" if "ssd_scan_kernel" in name else
+                "ssd_scan" if "ssd_scan_" in name else
                 "gemm" if any(g in name.lower() for g in
                               ("gemm", "nvjet", "xmma", "cutlass")) else
                 "other")
@@ -1153,7 +1214,9 @@ def phase_lm_bf16() -> dict:
     log(f"phase 13 LM bf16 prefill B=2 S={LM_S_BF16}: launches {launched}; "
         f"warm prefill {wall:.3f} s wall")
     out = {"launches": launched, "errs": checked["max_abs_err"],
-           "mean_abs_out": checked["mean_abs_out"], "times": times,
+           "mean_abs_out": checked["mean_abs_out"],
+           "value_at_max_err": checked["value_at_max_err"],
+           "times": times,
            "wall_s": wall, "profile": prof, "init_s": init_s}
     del model
     free_cuda()
@@ -1199,7 +1262,9 @@ def phase_lm_long() -> dict:
         f"peak device memory {peak:.1f} GiB")
     out = {"launches": launched, "wall_s": walls, "times": times,
            "errs": checked["max_abs_err"],
-           "mean_abs_out": checked["mean_abs_out"], "peak_gib": peak}
+           "mean_abs_out": checked["mean_abs_out"],
+           "value_at_max_err": checked["value_at_max_err"],
+           "peak_gib": peak}
     free_cuda()
     return out
 
@@ -1272,6 +1337,8 @@ def lm_kernel_records(lm: dict) -> list:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "mean_abs_out": lm["bf16"]["mean_abs_out"][name],
+            "value_at_max_err": lm["bf16"]["value_at_max_err"][name],
+            "long_value_at_max_err": lm["long"]["value_at_max_err"][name],
             "max_abs_err_fp32": lm["fp32"]["kernel_errs"][name],
             "long_ms": tl["kernel_ms"],
             "long_max_abs_err": lm["long"]["errs"][name],
@@ -1281,6 +1348,10 @@ def lm_kernel_records(lm: dict) -> list:
             "ratio_to_library": t["ratio_to_library"],
             "long_tflops": tl["tflops"],
             "long_ratio_to_library": tl["ratio_to_library"],
+            "ms_per_launch": t["kernel_ms"] / t["calls"],
+            "long_ms_per_launch": tl["kernel_ms"] / tl["calls"],
+            "bound_share": t["bound_ms"] / t["kernel_ms"],
+            "long_bound_share": tl["bound_ms"] / tl["kernel_ms"],
         })
     return recs
 
@@ -1312,7 +1383,7 @@ def main() -> int:
         f"reducers, bucket widths {plan.bucket_widths()} with "
         f"{[b.R for b in plan.buckets]} reducers, "
         f"{sum(b.R * b.width ** 2 for b in plan.buckets)} Gram entries, "
-        f"{work['ops']} FLOP over valid pairs; host plan_a2a "
+        f"{work['ops']} FLOP over valid pairs i <= j; host plan_a2a "
         f"{t_plan:.2f} s, build_plan {t_build:.2f} s")
 
     errs = phase_kernel_vs_plain(x, plan)
@@ -1338,7 +1409,10 @@ def main() -> int:
     b16_ms, b16_by = bound(work, PEAK_BF16_TENSOR)
     log(f"bound fp32 {bound_ms:.4f} ms ({bound_by}); bf16 {b16_ms:.4f} ms "
         f"({b16_by}); kernel fp32 at {bound_ms / tot['kernel_fp32']:.3f} "
-        f"of its bound, bf16 at {b16_ms / tot['kernel_bf16']:.3f}")
+        f"of its bound, bf16 at {b16_ms / tot['kernel_bf16']:.3f}; fp32 "
+        f"kernel / torch.bmm {tot['kernel_fp32'] / tot['bmm']:.3f}; the "
+        f"schedule stages {tot['modelled_gather_bytes'] / 1e9:.3f} GB of "
+        f"table rows from L2 per fp32 request (modelled from the plan)")
     log(f"request wall (serving, host plan + source map + device) "
         f"{[round(v, 4) for v in walls]} s | card: {card['smi']}")
     kernels = [{
@@ -1354,6 +1428,11 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "bmm_pregathered_ms": tot["bmm"],
+        "bf16_ms": tot["kernel_bf16"],
+        "ratio_to_bmm": tot["kernel_fp32"] / tot["bmm"],
+        "modelled_gather_bytes": tot["modelled_gather_bytes"],
+        "buckets": fgg_buckets(timing, timing_new),
+        "ptxas": build_s["ptxas"]["fused_gather_gram"],
     }]
     rect_paths = {}
     for name, xt, yt, rplan, launches in (
@@ -1421,8 +1500,8 @@ def main() -> int:
     })
     kernels += lm_kernel_records(lm)
     for rec in kernels:
-        if rec["name"] == "flash_attention":
-            rec["ptxas"] = build_s["ptxas"]["flash_attention"]
+        if rec["name"] in ("flash_attention", "ssd_scan"):
+            rec["ptxas"] = build_s["ptxas"][rec["name"]]
     for rec in blocks["blocks"]:                  # not JSON: plan, tables
         for k in ("plan", "x", "y"):
             rec.pop(k)

@@ -11,167 +11,171 @@
 // input 0) and all-masked padding rows give zero entries.  The kernel never
 // reads outside the table: a valid slot whose index lies outside [0, m)
 // stages NaN, so the entries it touches come out NaN, not silently zero
-// (the executors reject such plans on the host before launching).  The gathered
-// (R, L, d) block is never written to device memory: rows go from the table
-// straight into shared memory.
+// (the executors reject such plans on the host before launching).  The
+// gathered (R, L, d) block is never written to device memory: rows go from
+// the table straight into shared memory.
 //
 // Bound on an H100 SXM at the main path's shape (m=4096, d=256, Zipf plan:
 // buckets of width 4/8/16/32 with 115,976,064 Gram entries in all):
-//   * operations: 2 * 115,976,064 * 256 = 5.94e10 FLOP.  In fp32 on CUDA
-//     cores (67 TFLOP/s) that is 0.89 ms, so fp32 is bound by operations.
+//   * operations: the block is symmetric, so only the products i <= j are
+//     needed, L (L + 1) / 2 dot products of d multiply-adds per reducer:
+//     at most 3.1e10 FLOP (every slot valid), 0.47 ms in fp32 on CUDA
+//     cores (67 TFLOP/s), so fp32 is bound by operations.
 //   * bytes: the (R, L, L) fp32 output is 464 MB, written once: 0.14 ms at
 //     3.35 TB/s; the table (4 MiB) and idx/mask (~33 MB) are read once each.
-//     For a bf16 table the tensor-core time (0.06 ms at 989 TFLOP/s) is
-//     below that, so bf16 is bound by the block write.
 //   (Only valid pairs need the product; chip_smoke.py states the bound for
-//   the data it runs.)
+//   the data it runs.)  The gather itself is an L2 stream: every staged row
+//   is one read of d elements from the table, which stays in the 50 MB L2,
+//   about 5 GB per fp32 request by the plan (modelled, not measured).  That
+//   stream, not device memory, is the floor in practice.
 //
-// What this simple design does about that bound:
-//   * One thread block takes G reducers of a bucket and one (i, j) tile of
-//     T x T outputs; T is the smallest power of two >= the bucket width,
-//     capped at 32, and G = max(1, 256 / T^2).  Wider buckets tile i and j
-//     over gridDim.y.  Narrow buckets thus still fill 256-thread blocks.
-//   * The block loads its own idx/mask rows, then stages the gathered rows
-//     in shared memory KC columns of d at a time (0 for a masked slot).  The
-//     table is 4 MiB and stays in the 50 MB L2, so the repeated gathers are
-//     L2 reads, not device-memory reads.
-//   * Each thread accumulates one output in fp32 FMA on CUDA cores (no TF32:
-//     the reference is held at 1e-5), reading both operands as float4 from
-//     shared memory rows padded to a conflict-free stride.  Shared-memory
-//     bandwidth, not FMA issue, limits it: about a quarter of fp32 peak at
-//     best.  Register tiling or wgmma on bf16 is later work.
-//   * The output is written once, coalesced along j.
+// Design: stream_gram.cuh's streaming register-tile Gram (a persistent
+// grid over (reducer group, tile pair it <= jt) items, a cp.async ring of
+// 16-byte vectors, RM x RN register tiles, symmetric blocks) with a gather
+// as its row source:
+//   * The first chunk's load of an item reads the mask and index of each
+//     of its staged rows into a shared table; then every chunk streams the
+//     rows' 16-byte vectors from x + idx * d + k through the ring.
+//   * A masked slot is a cp.async of 0 bytes (zeros); a valid slot outside
+//     the table is a shared-memory store of NaN.  Rows whose byte length
+//     or base is not a multiple of 16 (fp32 d = 33, bf16 d = 100) take
+//     element loads in the same ring.
+//   * Register tiles RM x RN = 4 x 4 (2 x 2 at T = 4, 8; 1 x 1 at T = 1, 2).
+// Tried on an H100 and dropped: a 3- or 4-stage ring (fewer blocks fit on
+// an SM), 64 staged rows per block and 64-byte chunks were all slower at
+// the m=4096 request; a copy with the FMAs taken out gained about as much
+// as the 2-stage ring, so the buckets are bound by the gather and the
+// staging, not by their multiplies.  Times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stream_gram.cuh"
+
 namespace {
 
-constexpr int KC = 32;        // d columns staged per chunk
-constexpr int LDS = KC + 4;   // staged row stride in floats: 16-byte rows,
-                              // conflict-free float4 reads across lanes
+using stream_gram::CB;
+using stream_gram::Grid;
+using stream_gram::ROWS;
+using stream_gram::RS;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Zero and NaN of the table's type.
+template <typename Tin>
+__device__ __forceinline__ Tin fill(bool nan);
+template <>
+__device__ __forceinline__ float fill<float>(bool nan) {
+  return nan ? __int_as_float(0x7fc00000) : 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 fill<__nv_bfloat16>(bool nan) {
+  return __ushort_as_bfloat16(nan ? 0x7fc0 : 0);
 }
 
-template <int T>
-__host__ __device__ constexpr int reducers_per_block() {
-  return 256 / (T * T) > 0 ? 256 / (T * T) : 1;
-}
+// Row source: staged row s of side `side` of reducer r is table row
+// idx[r, slot] for slot (it or jt) * T + s % T.
+struct GatheredRows {
+  static constexpr bool kTable = true;
+  const void* x;            // (m, d) table
+  const int32_t* idx;       // (R, L)
+  const uint8_t* mask;      // (R, L)
+  int m;
+  int vec;                  // rows and base on 16-byte boundaries
 
-// grid = (ceil(R / G), n_t * n_t), block = G * T * T threads.
-// rstride = staged rows per reducer: T when n_t == 1 (the i and j tiles are
-// the same rows), else 2T.
-template <typename Tin, int T>
-__global__ void __launch_bounds__(1024)
-fused_gather_gram_kernel(const Tin* __restrict__ x,
-                         const int32_t* __restrict__ idx,
-                         const uint8_t* __restrict__ mask,
-                         float* __restrict__ out, long long R, int L, int d,
-                         int m, int n_t, int rstride) {
-  constexpr int G = reducers_per_block<T>();
-  extern __shared__ __align__(16) float smem[];
-  int* src = reinterpret_cast<int*>(smem);        // [G][rstride] table rows
-  float* rows = smem + G * rstride;               // [G][rstride][LDS]
+  // The table row of (reducer r, slot): >= 0 a row, -1 zeros (a masked
+  // slot, a slot past L or a reducer past R), -2 NaN (a valid slot outside
+  // the table).
+  __device__ __forceinline__ int source_row(const Grid& a, long long r,
+                                            int slot) const {
+    if (r >= a.R || slot >= a.M) return -1;
+    const long long o = r * a.M + slot;
+    if (!mask[o]) return -1;
+    const int row = idx[o];
+    return (row >= 0 && row < m) ? row : -2;
+  }
 
-  const int it = blockIdx.y / n_t;
-  const int jt = blockIdx.y % n_t;
-  const bool same = it == jt;
-  const int nrows = same ? T : 2 * T;             // rows staged per reducer
-  const long long r0 = static_cast<long long>(blockIdx.x) * G;
+  // Fill `table` with the table row of each staged row of item `item`:
+  // side 0 then, when `two_sides`, side 1.
+  template <int T>
+  __device__ __forceinline__ void lookup(const Grid& a, int* table,
+                                         long long item, int it, int jt,
+                                         bool two_sides) const {
+    constexpr int G = ROWS / T;
+    const long long r0 = (item / a.pairs) * G;
+    for (int row = threadIdx.x; row < (two_sides ? 2 : 1) * ROWS;
+         row += blockDim.x) {
+      const int side = row / ROWS, s = row % ROWS;
+      table[row] = source_row(a, r0 + s / T, (side ? jt : it) * T + s % T);
+    }
+  }
 
-  // The block loads its own idx/mask rows: staged row s of reducer g comes
-  // from table row src[g][s]; -1 stages zeros (a masked / padding slot),
-  // -2 stages NaN (an index outside the table).
-  for (int e = threadIdx.x; e < G * nrows; e += blockDim.x) {
-    const int g = e / nrows;
-    const int s = e % nrows;
-    const int slot = (s < T ? it : jt) * T + s % T;
-    const long long r = r0 + g;
-    int v = -1;
-    if (r < R && slot < L) {
-      const long long o = r * L + slot;
-      if (mask[o]) {
-        const int row = idx[o];
-        v = (row >= 0 && row < m) ? row : -2;
+  // Stage chunk `kc` of the rows listed in `table` into `stage`.
+  template <typename Tin, int T>
+  __device__ __forceinline__ void load(const Grid& a, unsigned char* stage,
+                                       const int* table, long long, int, int,
+                                       int kc, bool two_sides) const {
+    constexpr int VE = 16 / sizeof(Tin);         // elements per vector
+    constexpr int KC = CB / sizeof(Tin);         // elements per chunk
+    const int k0 = kc * KC;
+    const int rows = (two_sides ? 2 : 1) * ROWS;
+    const Tin* xt = static_cast<const Tin*>(x);
+    if (vec) {
+      for (int e = threadIdx.x; e < rows * (CB / 16); e += blockDim.x) {
+        const int row = e / (CB / 16), v = e % (CB / 16);
+        const int from = table[row];
+        const int k = k0 + v * VE;
+        unsigned char* dst = stage + row * RS + v * 16;
+        if (from == -2) {
+          const Tin f = fill<Tin>(k < a.K);
+          Tin* d = reinterpret_cast<Tin*>(dst);
+#pragma unroll
+          for (int u = 0; u < VE; ++u) d[u] = f;
+        } else {
+          const bool ok = from >= 0 && k < a.K;
+          cp_async16(dst,
+                     ok ? xt + static_cast<long long>(from) * a.K + k : xt,
+                     ok ? 16 : 0);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * KC; e += blockDim.x) {
+        const int row = e / KC, c = e % KC;
+        const int from = table[row];
+        const int k = k0 + c;
+        Tin v = fill<Tin>(from == -2 && k < a.K);
+        if (from >= 0 && k < a.K)
+          v = xt[static_cast<long long>(from) * a.K + k];
+        reinterpret_cast<Tin*>(stage + row * RS)[c] = v;
       }
     }
-    src[g * rstride + s] = v;
   }
-  __syncthreads();
+};
 
-  const int t = threadIdx.x;
-  const int g = t / (T * T);
-  const int ti = (t / T) % T;
-  const int tj = t % T;
-  const float* A = rows + (g * rstride + ti) * LDS;
-  const float* B = rows + (g * rstride + (same ? tj : T + tj)) * LDS;
-  float acc = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    // Stage columns [k0, k0 + KC) of every gathered row; threads walk k
-    // fastest, so each warp reads contiguous table memory.
-    for (int e = threadIdx.x; e < G * nrows * KC; e += blockDim.x) {
-      const int k = e % KC;
-      const int rr = e / KC;
-      const int g2 = rr / nrows;
-      const int s = rr % nrows;
-      const int row = src[g2 * rstride + s];
-      float v = row == -2 ? __int_as_float(0x7fc00000) : 0.f;   // NaN / 0
-      if (row >= 0 && k0 + k < d)
-        v = to_f32(x[static_cast<long long>(row) * d + k0 + k]);
-      rows[(g2 * rstride + s) * LDS + k] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KC; k += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(A + k);
-      const float4 b = *reinterpret_cast<const float4*>(B + k);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
-    __syncthreads();
-  }
-
-  const long long r = r0 + g;
-  const int i = it * T + ti;
-  const int j = jt * T + tj;
-  if (r < R && i < L && j < L) out[(r * L + i) * L + j] = acc;
+// block = G * (T/RM) * (T/RN) threads; grid-stride over the items.
+template <typename Tin, int T, int RM, int RN>
+__global__ void __launch_bounds__(256)
+    fused_gather_gram_kernel(const Grid g, const GatheredRows src) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  stream_gram::run<Tin, T, RM, RN>(g, src, smem);
 }
 
-template <typename Tin, int T>
-cudaError_t launch(const void* x, const void* idx, const void* mask,
-                   void* out, long long R, int L, int d, int m,
-                   cudaStream_t stream) {
-  constexpr int G = reducers_per_block<T>();
-  const int n_t = (L + T - 1) / T;
-  if (static_cast<long long>(n_t) * n_t > 65535) return cudaErrorInvalidValue;
-  const int rstride = n_t == 1 ? T : 2 * T;
-  const size_t shmem = static_cast<size_t>(G) * rstride *
-                       (sizeof(int) + LDS * sizeof(float));
-  const dim3 grid(static_cast<unsigned>((R + G - 1) / G), n_t * n_t);
-  fused_gather_gram_kernel<Tin, T><<<grid, G * T * T, shmem, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const int32_t*>(idx),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), R, L, d,
-      m, n_t, rstride);
-  return cudaGetLastError();
+template <typename Tin, int T, int RM, int RN>
+cudaError_t launch(float* out, long long R, int L, int d,
+                   const GatheredRows& rows, cudaStream_t stream) {
+  const Grid g = stream_gram::schedule<T>(out, R, L, L, d, true);
+  return stream_gram::launch<T, RM, RN>(
+      fused_gather_gram_kernel<Tin, T, RM, RN>, g, rows, stream);
 }
 
 template <typename Tin>
-cudaError_t dispatch(const void* x, const void* idx, const void* mask,
-                     void* out, long long R, int L, int d, int m,
-                     cudaStream_t stream) {
-  if (L <= 1) return launch<Tin, 1>(x, idx, mask, out, R, L, d, m, stream);
-  if (L <= 2) return launch<Tin, 2>(x, idx, mask, out, R, L, d, m, stream);
-  if (L <= 4) return launch<Tin, 4>(x, idx, mask, out, R, L, d, m, stream);
-  if (L <= 8) return launch<Tin, 8>(x, idx, mask, out, R, L, d, m, stream);
-  if (L <= 16) return launch<Tin, 16>(x, idx, mask, out, R, L, d, m, stream);
-  return launch<Tin, 32>(x, idx, mask, out, R, L, d, m, stream);
+cudaError_t dispatch(float* out, long long R, int L, int d,
+                     const GatheredRows& rows, cudaStream_t s) {
+  if (L <= 1) return launch<Tin, 1, 1, 1>(out, R, L, d, rows, s);
+  if (L <= 2) return launch<Tin, 2, 1, 1>(out, R, L, d, rows, s);
+  if (L <= 4) return launch<Tin, 4, 2, 2>(out, R, L, d, rows, s);
+  if (L <= 8) return launch<Tin, 8, 2, 2>(out, R, L, d, rows, s);
+  if (L <= 16) return launch<Tin, 16, 4, 4>(out, R, L, d, rows, s);
+  return launch<Tin, 32, 4, 4>(out, R, L, d, rows, s);
 }
 
 }  // namespace
@@ -186,9 +190,18 @@ int fused_gather_gram_launch(const void* x, int is_bf16, const void* idx,
                              int d, int m, void* stream) {
   if (R <= 0) return 0;
   if (L <= 0 || d <= 0 || m <= 0) return cudaErrorInvalidValue;
+  GatheredRows rows{};
+  rows.x = x;
+  rows.idx = static_cast<const int32_t*>(idx);
+  rows.mask = static_cast<const uint8_t*>(mask);
+  rows.m = m;
+  const int item = is_bf16 ? 2 : 4;
+  rows.vec = (static_cast<long long>(d) * item) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(x, idx, mask, out, R, L, d, m, s)
-                 : dispatch<float>(x, idx, mask, out, R, L, d, m, s);
+  return is_bf16 ? dispatch<__nv_bfloat16>(o, R, L, d, rows, s)
+                 : dispatch<float>(o, R, L, d, rows, s);
 }
 
 const char* fused_gather_gram_error_string(int err) {

@@ -1,0 +1,280 @@
+// Streaming register-tile Gram blocks for Hopper (sm_90a), shared by
+// pairwise_gram.cu (the rows of a batch of blocks) and fused_gather_gram.cu
+// (rows gathered from one table).  For every reducer r of a launch
+//
+//     out[r] = A[r] . B[r]^T           (M, N) fp32, A (M, K), B (N, K)
+//
+// where a row source policy says where each staged row of A and B comes
+// from.  The design:
+//   * A block owns 128 staged rows per side: G = 128 / T reducers of one
+//     T x T output tile pair (it, jt) (T = 1 .. 32 from the widths; wider
+//     blocks tile i and j).  The grid is persistent: a block walks its items
+//     (reducer group, tile pair) with a grid stride.
+//   * Rows arrive as 16-byte cp.async vectors, 128 bytes of K per row and
+//     chunk, through a STAGES-deep ring, so the next chunk is in flight
+//     while one is multiplied; the ring runs across items, so the next
+//     item's rows load under this one's last products.
+//   * Register tiles: each thread owns RM x RN outputs (rows and columns
+//     strided by the thread grid), so one 16-byte shared-memory load feeds
+//     RN (or RM) FMAs per element, on a row stride of 144 bytes (an odd
+//     number of 16-byte units: a quarter-warp's loads fall on distinct
+//     banks).  bf16 rows are widened to fp32 as they are read; fp32 FMA, no
+//     TF32, so bf16 products are exact in fp32.
+//   * Symmetry (Grid::self: B's rows are A's rows, M == N): only the tile
+//     pairs it <= jt are items; a diagonal pair stages one side, an
+//     off-diagonal pair writes its mirror too.  With one tile per side only
+//     the thread tiles on or above the diagonal multiply, each storing its
+//     outputs twice.  Every (M, N) entry is written.
+//
+// A row source policy `Src` gives
+//   static constexpr bool kTable: it looks an item's rows up once, at the
+//     item's first chunk, into a shared table of 2 * ROWS ints per stage;
+//   template <int T> __device__ void lookup(const Grid&, int* table,
+//     long long item, int it, int jt, bool two_sides) const (only when
+//     kTable);
+//   template <typename Tin, int T> __device__ void load(const Grid&,
+//     unsigned char* stage, const int* table, long long item, int it, int jt,
+//     int kc, bool two_sides) const: stage chunk kc of the item's rows (side
+//     0 at rows [0, ROWS), side 1 at [ROWS, 2 ROWS)) at stride RS.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+
+namespace stream_gram {
+
+constexpr int ROWS = 128;          // staged rows per side and block
+constexpr int CB = 128;            // bytes of K per row and chunk
+constexpr int RS = CB + 16;        // staged row stride in bytes
+constexpr int STAGES = 2;          // depth of the cp.async ring
+
+struct Grid {
+  float* out;           // (R, M, N)
+  long long R;          // reducers
+  int M, N, K;          // rows of A, rows of B, their width
+  int self;             // B's rows are A's rows (M == N)
+  int n_tm, n_tn;       // tiles along i and j
+  int pairs;            // tile pairs per reducer group
+  long long items;      // reducer groups x tile pairs
+};
+
+// The launch's schedule for tiles of width T.
+template <int T>
+Grid schedule(float* out, long long R, int M, int N, int K, bool self) {
+  Grid g{};
+  g.out = out;
+  g.R = R;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.self = self;
+  g.n_tm = (M + T - 1) / T;
+  g.n_tn = (N + T - 1) / T;
+  g.pairs = self ? g.n_tm * (g.n_tm + 1) / 2 : g.n_tm * g.n_tn;
+  g.items = (R + ROWS / T - 1) / (ROWS / T) * g.pairs;
+  return g;
+}
+
+// Tile pair of item `item`: row by row over all pairs, or over the upper
+// triangle it <= jt when the block is a self-Gram.
+__device__ __forceinline__ void tile_pair(const Grid& g, long long item,
+                                          int& it, int& jt) {
+  int k = static_cast<int>(item % g.pairs);
+  if (!g.self) {
+    it = k / g.n_tn;
+    jt = k % g.n_tn;
+    return;
+  }
+  it = 0;
+  while (k >= g.n_tm - it) {
+    k -= g.n_tm - it;
+    ++it;
+  }
+  jt = it + k;
+}
+
+// Four or eight consecutive K elements of a staged row as fp32.
+__device__ __forceinline__ void widen(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[2 * e] = __uint_as_float(w[e] << 16);
+    v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+// Shared memory of one launch: the ring, and the row tables of a `kTable`
+// source.
+template <typename Src>
+int smem_bytes(const Grid& g) {
+  const bool one_side = g.self && g.n_tm == 1;
+  return STAGES * ((one_side ? 1 : 2) * ROWS * RS +
+                   (Src::kTable ? 2 * ROWS * static_cast<int>(sizeof(int))
+                                : 0));
+}
+
+// The body of a kernel: block = G * (T/RM) * (T/RN) threads, grid-stride
+// over g.items, smem_bytes<Src>(g) of dynamic shared memory at `smem`.
+template <typename Tin, int T, int RM, int RN, typename Src>
+__device__ __forceinline__ void run(const Grid& a, const Src& src,
+                                    unsigned char* smem) {
+  constexpr int G = ROWS / T;
+  constexpr int TI = T / RM, TJ = T / RN;        // thread grid of one tile
+  constexpr int VE = 16 / sizeof(Tin);
+  constexpr int KC = CB / sizeof(Tin);
+
+  // one side staged when A's rows are B's rows: self-Gram, one tile
+  const bool one_side = a.self && a.n_tm == 1;
+  const int stage_bytes = (one_side ? 1 : 2) * ROWS * RS;
+  const int n_chunks = (a.K + KC - 1) / KC;
+  const long long my_items =
+      a.items > blockIdx.x ? (a.items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long steps = my_items * n_chunks;
+
+  // Thread t owns outputs (ti + TI i, tj + TJ j) of reducer g's tile.  One
+  // staged side means out[r] is symmetric: only the pairs ti <= tj are
+  // computed, each also stored mirrored, and the spare threads (whole
+  // warps, mostly) only stage rows.
+  static_assert(TI == TJ, "square thread grid");
+  constexpr int PAIRS = TI * (TI + 1) / 2;
+  const int t = threadIdx.x;
+  int g = t / (TI * TJ), ti = (t / TJ) % TI, tj = t % TJ;
+  if (one_side) {
+    g = t / PAIRS;
+    int u = t % PAIRS;
+    for (ti = 0; u >= TI - ti; ++ti) u -= TI - ti;
+    tj = ti + u;
+  }
+  const bool active = g < G;
+
+  // A table source looks each item's rows up once, by its first chunk's
+  // load, into one of STAGES tables (the loads in flight span at most
+  // STAGES items); the barrier publishes them to every loading thread.
+  int* tables = reinterpret_cast<int*>(smem + STAGES * stage_bytes);
+  auto load = [&](long long s) {
+    if (s < steps) {
+      const long long item = blockIdx.x + (s / n_chunks) * gridDim.x;
+      int it, jt;
+      tile_pair(a, item, it, jt);
+      const bool two_sides = !(a.self && it == jt);
+      int* table = tables + ((s / n_chunks) % STAGES) * 2 * ROWS;
+      const int kc = static_cast<int>(s % n_chunks);
+      if constexpr (Src::kTable) {
+        if (kc == 0) {
+          src.template lookup<T>(a, table, item, it, jt, two_sides);
+          __syncthreads();
+        }
+      }
+      src.template load<Tin, T>(a, smem + (s % STAGES) * stage_bytes, table,
+                                item, it, jt, kc, two_sides);
+    }
+    cp_async_commit();              // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+
+  for (long long s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                // chunk s landed; chunk s-1 consumed
+    load(s + STAGES - 1);
+
+    const long long item = blockIdx.x + (s / n_chunks) * gridDim.x;
+    int it, jt;
+    tile_pair(a, item, it, jt);
+    const unsigned char* st = smem + (s % STAGES) * stage_bytes;
+    // B's rows: the A rows themselves on a diagonal self-Gram pair
+    const bool shared = a.self && it == jt;
+    const unsigned char* sa = st + (g * T) * RS;
+    const unsigned char* sb = st + ((shared ? 0 : ROWS) + g * T) * RS;
+#pragma unroll
+    for (int k = 0; k < KC && active; k += VE) {
+      float av[RM][VE], bv[RN][VE];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        widen(reinterpret_cast<const Tin*>(sa + (ti + TI * i) * RS) + k,
+              av[i]);
+#pragma unroll
+      for (int j = 0; j < RN; ++j)
+        widen(reinterpret_cast<const Tin*>(sb + (tj + TJ * j) * RS) + k,
+              bv[j]);
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j)
+            acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
+    }
+
+    if (s % n_chunks == n_chunks - 1) {     // the item's last chunk
+      const long long r = (item / a.pairs) * G + g;
+      if (active && r < a.R) {
+        float* o = a.out + r * a.M * static_cast<long long>(a.N);
+        // mirrored: the thread pairs ti < tj of a one-tile self-Gram,
+        // every entry of an off-diagonal self-Gram tile pair
+        const bool mirror = a.self && (one_side ? ti != tj : it != jt);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const int row = it * T + ti + TI * i;
+#pragma unroll
+          for (int j = 0; j < RN; ++j) {
+            const int col = jt * T + tj + TJ * j;
+            if (row < a.M && col < a.N) {
+              o[static_cast<long long>(row) * a.N + col] = acc[i][j];
+              if (mirror)
+                o[static_cast<long long>(col) * a.N + row] = acc[i][j];
+            }
+            acc[i][j] = 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Launch `kernel` (a __global__ wrapper of run<Tin, T, RM, RN, Src>) on a
+// persistent grid: as many blocks as fit on the card at once, at most one
+// per item.
+template <int T, int RM, int RN, typename Src>
+cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
+                   cudaStream_t stream) {
+  constexpr int threads = ROWS / T * (T / RM) * (T / RN);
+  const int shmem = smem_bytes<Src>(g);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, shmem);
+  if (err != cudaSuccess) return err;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long blocks = g.items < resident ? g.items : resident;
+  kernel<<<static_cast<unsigned>(blocks), threads, shmem, stream>>>(g, src);
+  return cudaGetLastError();
+}
+
+}  // namespace stream_gram

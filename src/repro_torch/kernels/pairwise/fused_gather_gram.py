@@ -38,11 +38,32 @@ from .. import _build
 
 __all__ = ["fused_gather_gram", "fused_gather_gram_ref",
            "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
-           "gather_rows", "ieee_fp32", "launch_count", "reset_launch_count"]
+           "gather_bytes", "gather_rows", "ieee_fp32", "launch_count",
+           "reset_launch_count", "tile_width"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]
 _RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+
+
+def tile_width(L: int) -> int:
+    """The square kernel's tile width T for a bucket of width ``L``: the
+    smallest power of two >= L, capped at 32 (wider buckets take
+    ``ceil(L / T)`` tiles per side)."""
+    if L < 1:
+        raise ValueError(f"bucket width {L}: want >= 1")
+    return min(32, 1 << (L - 1).bit_length())
+
+
+def gather_bytes(mask, d: int, itemsize: int) -> int:
+    """Table bytes the square kernel's gather streams for one bucket with
+    ``(R, L)`` mask ``mask``: every valid slot's row of ``d`` elements is
+    staged once per tile pair it enters (``it <= jt``), which is
+    ``ceil(L / T)`` times; masked slots are zero-filled and read nothing.
+    With the table in L2 this is the kernel's L2 read stream."""
+    L = mask.shape[1]
+    n_t = -(-L // tile_width(L))
+    return int(mask.sum()) * n_t * d * itemsize
 
 
 def launch_count() -> int:

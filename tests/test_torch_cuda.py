@@ -141,6 +141,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fused_gather_gram(x, idx.cpu(), mask)
 
 
+def _check_square(x, idx, mask):
+    got = fused_gather_gram(x, idx, mask)
+    torch.cuda.synchronize()
+    want = fused_gather_gram_ref(x, idx, mask)
+    torch.testing.assert_close(
+        got, want, **(FP32 if x.dtype == torch.float32 else BF16))
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_every_width_up_to_32(cuda, dtype):
+    """Every bucket width 1..32: the six tile widths T (1 to 32), the
+    symmetric one-tile block with its mirrored stores, ragged widths
+    inside a tile; R is never a multiple of the 128 / T reducers of a
+    block."""
+    dt = getattr(torch, dtype)
+    for L in range(1, 33):
+        x, idx, mask = _inputs(L, 131 + 7 * L, L, 300, 64, cuda, dt)
+        _check_square(x, idx, mask)
+
+
+@pytest.mark.parametrize("R,L,m,d,dtype", [
+    (50, 20, 60, 33, "float32"),     # rows of 132 bytes: element loads
+    (50, 20, 60, 100, "bfloat16"),   # rows of 200 bytes: element loads
+    (9, 37, 80, 33, "float32"),      # unaligned rows, two tiles per side
+    (5, 130, 300, 100, "bfloat16"),  # unaligned rows, five tiles per side
+    (129, 16, 500, 256, "float32"),  # R past a whole number of blocks
+    (33, 8, 64, 8, "bfloat16"),      # one vector per row
+])
+def test_kernel_unaligned_rows_and_partial_blocks(cuda, R, L, m, d, dtype):
+    x, idx, mask = _inputs(R + d, R, L, m, d, cuda, getattr(torch, dtype))
+    _check_square(x, idx, mask)
+
+
+@pytest.mark.parametrize("L", [4, 16, 37, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_all_masked_reducer_and_outside_index(cuda, L, dtype):
+    """An all-masked reducer gives exact zeros; a valid index past the
+    table gives NaN in its row and column only, also in the mirrored
+    tiles of wide buckets (n_t > 1); the rest matches the plain version."""
+    R, m = 6, 50
+    x, idx, mask = _inputs(L, R, L, m, 40, cuda, getattr(torch, dtype))
+    mask[1] = False
+    mask[4, :] = True
+    idx[4, L - 1] = m + 3                      # valid slot, outside
+    got = fused_gather_gram(x, idx, mask)
+    torch.cuda.synchronize()
+    assert float(got[1].abs().max()) == 0.0
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[4, L - 1, :] = True
+    bad[4, :, L - 1] = True
+    assert bool(got[bad].isnan().all()) and not bool(got[~bad].isnan().any())
+    idx[4, L - 1] = 0
+    torch.testing.assert_close(
+        got[~bad], fused_gather_gram_ref(x, idx, mask)[~bad],
+        **(FP32 if dtype == "float32" else BF16))
+
+
 @pytest.mark.parametrize("metric", ["dot", "l2", "cosine"])
 def test_fused_pairwise_matches_oracles_on_the_card(cuda, metric):
     rng = np.random.default_rng(3)
@@ -559,6 +617,73 @@ def test_ssd_kernel_reads_broadcast_bc(cuda, dtype):
     torch.testing.assert_close(
         got.float(), ssd(x, la, bh, ch, impl="chunked").float(),
         **(ATTN if dtype == "float32" else ATTN_BF16))
+
+
+# the bf16 kernel's contract in chip_smoke.py: one bf16 step of the output
+SSD_BF16 = dict(rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("S", [1, 300, 4096])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", ["few", "many"])
+def test_ssd_kernel_head_groups(cuda, S, shared, dtype, heads):
+    """Broadcast B / C and per-head B / C (one head per block), with a
+    head count that is not a multiple of the head group; S of one row, a
+    ragged last chunk and the model's 4096.  With broadcast B / C the bf16
+    kernel takes two heads per block unless one ends sooner: at B = 2, 5
+    heads take one per block and 2 SMs - 1 heads take two (the same number
+    of head-times either way), the last block of each row with one."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + 7 * shared)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, H, P, N = 2, 5 if heads == "few" else 2 * sms - 1, 64, 128
+    x, la, b, c = _ssd_inputs(rng, B, S, H, P, N, cuda, dt)
+    if shared:
+        b = b[:, :, :1].expand(B, S, H, N)
+        c = c[:, :, :1].expand(B, S, H, N)
+    before = _launches("ssd_scan")
+    got = ssd_scan_heads(x, la, b, c)
+    torch.cuda.synchronize()
+    assert _launches("ssd_scan") == before + 1
+    want = ssd(x, la, b, c, impl="chunked")
+    torch.testing.assert_close(
+        got.float(), want.float(),
+        **(ATTN if dtype == "float32" else SSD_BF16))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_bf16_rows_off_16_bytes_take_element_loads(cuda, shared):
+    """Widths that are not a multiple of 8 elements and an x that starts 2
+    bytes past a 16-byte boundary: the bf16 kernel stages them by element
+    loads into the same tiles and stores y element by element."""
+    rng = np.random.default_rng(11)
+    B, S, H, P, N = 1, 150, 3, 36, 20
+    wide = _normal(rng, (B, S, H, P + 1), cuda, torch.bfloat16)
+    x = wide[..., 1:]                         # unit stride, base off 16
+    _, la, b, c = _ssd_inputs(rng, B, S, H, P, N, cuda, torch.bfloat16)
+    if shared:
+        b = b[:, :, :1].expand(B, S, H, N)
+        c = c[:, :, :1].expand(B, S, H, N)
+    got = ssd_scan_heads(x, la, b, c, chunk=64)
+    want = ssd(x, la, b, c, chunk=64, impl="chunked")
+    torch.testing.assert_close(got.float(), want.float(), **SSD_BF16)
+
+
+def test_ssd_bf16_32k_holds_the_state(cuda):
+    """bf16 at the prefill_32k length (256 chunks of 128) on a few heads
+    sharing B and C, with a decay slow enough that the state carries
+    across many chunks: the fp32 state and its bf16 products do not drift
+    from the plain chunked scan."""
+    rng = np.random.default_rng(32)
+    B, S, H, P, N = 1, 32768, 3, 64, 128
+    x, la, b, c = _ssd_inputs(rng, B, S, H, P, N, cuda, torch.bfloat16)
+    la = la * 2e-4           # about exp(-0.02) per chunk of 128 steps
+    b = b[:, :, :1].expand(B, S, H, N)
+    c = c[:, :, :1].expand(B, S, H, N)
+    got = ssd_scan_heads(x, la, b, c)
+    want = ssd(x, la, b, c, impl="chunked")
+    torch.testing.assert_close(got.float(), want.float(), **SSD_BF16)
 
 
 def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

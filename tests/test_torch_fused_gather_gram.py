@@ -123,3 +123,33 @@ def test_shape_mismatch_raises():
         fused_gather_gram(torch.ones((4, 3)),
                           torch.zeros((2, 3), dtype=torch.int32),
                           torch.ones((2, 4), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("L,T", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
+                                 (16, 16), (17, 32), (32, 32), (37, 32),
+                                 (130, 32)])
+def test_tile_width(L, T):
+    assert fgg_mod.tile_width(L) == T
+
+
+@pytest.mark.parametrize("R,L", [(7, 3), (5, 32), (4, 37), (3, 130)])
+def test_gather_bytes_counts_the_kernels_staged_rows(R, L):
+    """``gather_bytes`` against the kernel's schedule walked item by item:
+    tile pairs it <= jt, one staged side on the diagonal, two off it, and
+    only valid slots read from the table."""
+    rng = np.random.default_rng(R * L)
+    mask = rng.uniform(size=(R, L)) < 0.6
+    d, item = 24, 4
+    T = fgg_mod.tile_width(L)
+    n_t = -(-L // T)
+    rows = 0
+    for r in range(R):
+        for it in range(n_t):
+            for jt in range(it, n_t):
+                sides = (it,) if it == jt else (it, jt)
+                for tile in sides:
+                    slots = range(tile * T, min(L, tile * T + T))
+                    rows += sum(bool(mask[r, s]) for s in slots)
+    assert fgg_mod.gather_bytes(mask, d, item) == rows * d * item
+    assert fgg_mod.gather_bytes(torch.from_numpy(mask), d, item) == \
+        rows * d * item
