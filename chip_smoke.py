@@ -36,12 +36,15 @@ just before it and read just after):
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
 source, all started together) and prints ptxas's registers, shared memory
 and spills of the tensor-core flash kernel, the SSD kernels and the
-instantiations of ``pairwise_gram`` and ``fused_gather_gram``, phase 6
-times ``fused_gather_gram`` per bucket beside ``torch.bmm``, its bound and
-the table bytes its gather streams from L2, phase 11 times the rectangular
-and pairwise kernels (CUDA events; ``pairwise_gram`` per bucket beside
-``torch.bmm`` and its bound), and the summary sets ``fused_gather_gram``
-beside ``pairwise_gram`` per bucket.  Flash is timed beside SDPA in the
+instantiations of ``pairwise_gram``, ``fused_gather_gram`` and
+``fused_gather_gram_rect``, phase 6 times ``fused_gather_gram`` per bucket
+beside ``torch.bmm``, its bound and the table bytes its gather streams from
+L2, phase 11 times the rectangular kernel per bucket of its four paths (X2Y
+skew and balanced, the two blocks) and ``pairwise_gram`` per bucket, each
+beside ``torch.bmm`` on the pre-gathered blocks and its bound, the rect
+kernel also beside the table bytes its gather stages (modelled from the
+plan), and the summary sets ``fused_gather_gram`` beside ``pairwise_gram``
+per bucket.  Flash is timed beside SDPA in the
 same call; flash and SSD with their ms per launch, share of bound and
 achieved TFLOP/s.
 Any failed check raises, so the exit code is non-zero; without a CUDA
@@ -56,6 +59,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -193,7 +197,23 @@ KERNELS = ("fused_gather_gram", "fused_gather_gram_rect", "pairwise_gram",
 PTXAS_ENTRIES = {"flash_attention": "flash_wgmma_kernel",
                  "pairwise_gram": "pairwise_gram_kernel",
                  "fused_gather_gram": "fused_gather_gram_kernel",
+                 "fused_gather_gram_rect": "fused_gather_gram_rect_kernel",
                  "ssd_scan": "ssd_scan_"}
+
+
+def entry_label(entry: str, key: str) -> str:
+    """A readable name of a mangled kernel entry from ``key`` on: the Gram
+    kernels' template arguments spelled out (``<f32, 32, 2, 1, 1>``: input
+    type, then the tile and register-tile widths), else the mangled
+    tail."""
+    tail = entry[entry.index(key):]
+    m = re.match(re.escape(key) + r"I(f|13__nv_bfloat16)((?:Li\d+E)+)E",
+                 tail)
+    if not m:
+        return tail
+    args = ["f32" if m.group(1) == "f" else "bf16",
+            *re.findall(r"Li(\d+)E", m.group(2))]
+    return f"{key}<{', '.join(args)}>"
 
 
 def ptxas_entries(log_text: str) -> list:
@@ -236,7 +256,7 @@ def phase_build() -> dict:
         key = PTXAS_ENTRIES.get(name)
         ptxas[name] = [e for e in entries if key and key in e["entry"]]
         for e in ptxas[name]:
-            log(f"    {e['entry'][e['entry'].index(key):]}: "
+            log(f"    {entry_label(e['entry'], key)}: "
                 f"{e['registers']} registers, "
                 f"static smem {e['smem']} B, stack {e['stack']} B, spills "
                 f"{e['spill_stores']} / {e['spill_loads']} B")
@@ -544,19 +564,27 @@ def check_rect_buckets(x, y, plan, what: str) -> dict:
     return errs
 
 
+def rect_bucket_work(x, b) -> dict:
+    """Operations and bytes one bucket's rect launch needs: products over
+    valid (x, y) pairs only, 2 d per pair; idx (int32) and mask (uint8) of
+    both sides read once, every (R, Lx, Ly) fp32 output entry written once
+    (the tables are counted once per request, in ``rect_work``)."""
+    nx = b.mask.sum(axis=1).astype(np.int64)
+    ny = b.ymask.sum(axis=1).astype(np.int64)
+    return {"ops": 2 * x.shape[1] * int((nx * ny).sum()),
+            "bytes": b.R * (b.width + b.ywidth) * 5
+            + b.R * b.width * b.ywidth * 4}
+
+
 def rect_work(x, y, plan) -> dict:
-    """Operations and bytes one request's rect launches need: products
-    over valid (x, y) pairs only; both tables read once, idx (int32) and
-    mask (uint8) of both sides read once, every (R, Lx, Ly) fp32 output
-    entry written once."""
-    ops = 0
-    nbytes = (x.shape[0] + y.shape[0]) * x.shape[1] * x.element_size()
-    for b in plan.buckets:
-        nx = b.mask.sum(axis=1).astype(np.int64)
-        ny = b.ymask.sum(axis=1).astype(np.int64)
-        ops += 2 * x.shape[1] * int((nx * ny).sum())
-        nbytes += b.R * (b.width + b.ywidth) * 5 + b.R * b.width * b.ywidth * 4
-    return {"ops": ops, "bytes": nbytes}
+    """The same over one request's rect launches: products over valid (x,
+    y) pairs only; both tables read once, idx (int32) and mask (uint8) of
+    both sides read once, every (R, Lx, Ly) fp32 output entry written
+    once."""
+    works = [rect_bucket_work(x, b) for b in plan.buckets]
+    return {"ops": sum(w["ops"] for w in works),
+            "bytes": (x.shape[0] + y.shape[0]) * x.shape[1] * x.element_size()
+            + sum(w["bytes"] for w in works)}
 
 
 def x2y_host(kind: str):
@@ -788,9 +816,11 @@ def phase_pairwise_gram(x, schema, plan) -> dict:
 
 def time_rect(x, y, plan) -> dict:
     """CUDA-event times of the rect kernel per bucket of one request, its
-    plain version, and torch.bmm on the pre-gathered blocks."""
+    plain version, and torch.bmm on the pre-gathered blocks; per bucket the
+    tile widths, the bound and the table bytes the gather stages (modelled
+    from the plan, fp32)."""
     rows, tot = [], {"kernel_fp32": 0.0, "kernel_bf16": 0.0, "plain": 0.0,
-                     "bmm": 0.0}
+                     "bmm": 0.0, "modelled_gather_bytes": 0}
     xb, yb = x.bfloat16(), y.bfloat16()
     for b, arr in zip(plan.buckets, rect_bucket_arrays(plan, x.device)):
         a = arr[:4]
@@ -805,9 +835,18 @@ def time_rect(x, y, plan) -> dict:
         for k, v in (("kernel_fp32", k32), ("kernel_bf16", k16),
                      ("plain", plain), ("bmm", bmm)):
             tot[k] += v
+        b_ms, b_by = bound(rect_bucket_work(x, b), PEAK_FP32_CUDA_CORES)
+        staged = fgg.rect_gather_bytes(b.mask, b.ymask, x.shape[1],
+                                       x.element_size())
+        tot["modelled_gather_bytes"] += staged
         rows.append({"width": b.width, "ywidth": b.ywidth, "R": b.R,
+                     "tiles": fgg.rect_tile_widths(b.width, b.ywidth),
                      "kernel_fp32_ms": k32, "kernel_bf16_ms": k16,
-                     "plain_ms": plain, "bmm_ms": bmm})
+                     "plain_ms": plain, "bmm_ms": bmm,
+                     "ratio_to_bmm": k32 / bmm, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_share": b_ms / k32,
+                     "modelled_gather_bytes": staged})
+    tot["ratio_to_bmm"] = tot["kernel_fp32"] / tot["bmm"]
     return {"buckets": rows, "totals": tot}
 
 
@@ -857,17 +896,17 @@ def pairwise_work(x, plan) -> dict:
 
 def fgg_buckets(timing, timing_new) -> list:
     """Per bucket of the m=4096 request: fused_gather_gram beside
-    torch.bmm and pairwise_gram on the pre-gathered blocks (phase 11),
-    its share of bound and the table bytes its schedule stages (modelled
-    from the plan)."""
+    torch.bmm and pairwise_gram on the pre-gathered blocks (phase 11) and
+    its share of bound, for the ``kernels`` record; the log also gives the
+    table bytes its schedule stages (modelled from the plan, so kept out of
+    the record)."""
     pg_ms = {r["width"]: r["kernel_fp32_ms"]
              for r in timing_new["pairwise_gram"]["buckets"]}
     rows = []
     for r in timing["buckets"]:
         rec = {k: r[k] for k in ("width", "R", "kernel_fp32_ms",
                                  "kernel_bf16_ms", "bmm_ms", "ratio_to_bmm",
-                                 "bound_ms", "bound_share",
-                                 "modelled_gather_bytes")}
+                                 "bound_ms", "bound_share")}
         rec["pairwise_gram_ms"] = pg_ms[r["width"]]
         rec["ratio_to_pairwise_gram"] = r["kernel_fp32_ms"] / pg_ms[r["width"]]
         rows.append(rec)
@@ -913,19 +952,29 @@ def phase_timing_new(skew, bal, blocks, x, plan) -> dict:
     out["pairwise_gram"] = time_pairwise_gram(x, plan)
     for name, t in out.items():
         for r in t["buckets"]:
-            shape = (f"{r['width']}x{r['ywidth']}" if "ywidth" in r
+            rate = (r.get("modelled_gather_bytes", 0) / r["kernel_fp32_ms"]
+                    / 1e9)
+            shape = (f"{r['width']}x{r['ywidth']} (tiles "
+                     f"{r['tiles'][0]}x{r['tiles'][1]})" if "ywidth" in r
                      else f"{r['width']}")
             log(f"phase 11 {name} bucket {shape} R={r['R']}: kernel fp32 "
                 f"{r['kernel_fp32_ms']:.4f} ms, bf16 "
                 f"{r['kernel_bf16_ms']:.4f} ms; plain {r['plain_ms']:.4f} "
-                f"ms; torch.bmm {r['bmm_ms']:.4f} ms"
-                + (f"; kernel / bmm {r['ratio_to_bmm']:.3f}, bound "
-                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
-                   f"{r['bound_share']:.3f}" if "bound_ms" in r else ""))
+                f"ms; torch.bmm {r['bmm_ms']:.4f} ms; kernel / bmm "
+                f"{r['ratio_to_bmm']:.3f}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), share {r['bound_share']:.3f}"
+                + (f"; L2 gather (modelled) "
+                   f"{r['modelled_gather_bytes'] / 1e9:.3f} GB, "
+                   f"{rate:.2f} TB/s if all of it moved"
+                   if "ywidth" in r else ""))
         tt = t["totals"]
         log(f"phase 11 {name} per request: kernel fp32 "
             f"{tt['kernel_fp32']:.4f} ms, bf16 {tt['kernel_bf16']:.4f} ms; "
-            f"plain {tt['plain']:.4f} ms; torch.bmm {tt['bmm']:.4f} ms"
+            f"plain {tt['plain']:.4f} ms; torch.bmm {tt['bmm']:.4f} ms "
+            f"(kernel / bmm {tt['ratio_to_bmm']:.3f})"
+            + (f"; L2 gather (modelled) "
+               f"{tt['modelled_gather_bytes'] / 1e9:.3f} GB"
+               if "modelled_gather_bytes" in tt else "")
             + (f"; warm request median {tt['warm_request_s']:.4f} s"
                if "warm_request_s" in tt else ""))
     return out
@@ -1430,7 +1479,6 @@ def main() -> int:
         "bmm_pregathered_ms": tot["bmm"],
         "bf16_ms": tot["kernel_bf16"],
         "ratio_to_bmm": tot["kernel_fp32"] / tot["bmm"],
-        "modelled_gather_bytes": tot["modelled_gather_bytes"],
         "buckets": fgg_buckets(timing, timing_new),
         "ptxas": build_s["ptxas"]["fused_gather_gram"],
     }]
@@ -1448,8 +1496,14 @@ def main() -> int:
             "launches": launches["fused_gather_gram_rect"],
             "ms": t["kernel_fp32"], "bf16_ms": t["kernel_bf16"],
             "plain_ms": t["plain"], "bmm_pregathered_ms": t["bmm"],
+            "ratio_to_bmm": t["ratio_to_bmm"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "warm_request_s": t.get("warm_request_s")}
+            "warm_request_s": t.get("warm_request_s"),
+            "buckets": [{k: r[k] for k in (
+                "width", "ywidth", "R", "tiles", "kernel_fp32_ms",
+                "kernel_bf16_ms", "bmm_ms", "ratio_to_bmm", "bound_ms",
+                "bound_share")}
+                for r in timing_new[name.replace("x2y_", "")]["buckets"]]}
         log(f"rect kernel on {name}: {launches['fused_gather_gram_rect']} "
             f"launches, {t['kernel_fp32']:.4f} ms fp32 vs bound "
             f"{b_ms:.4f} ms ({b_by}), share {b_ms / t['kernel_fp32']:.3f}")
@@ -1470,6 +1524,7 @@ def main() -> int:
         "library_ms": None,
         "bmm_pregathered_ms": main_rect["bmm_pregathered_ms"],
         "paths": rect_paths,
+        "ptxas": build_s["ptxas"]["fused_gather_gram_rect"],
     })
     pt = timing_new["pairwise_gram"]["totals"]
     p_ms, p_by = bound(pairwise_work(x, plan), PEAK_FP32_CUDA_CORES)

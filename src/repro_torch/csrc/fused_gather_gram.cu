@@ -32,7 +32,7 @@
 // Design: stream_gram.cuh's streaming register-tile Gram (a persistent
 // grid over (reducer group, tile pair it <= jt) items, a cp.async ring of
 // 16-byte vectors, RM x RN register tiles, symmetric blocks) with a gather
-// as its row source:
+// as its row source (GatheredRows, gathered_rows.cuh):
 //   * The first chunk's load of an item reads the mask and index of each
 //     of its staged rows into a shared table; then every chunk streams the
 //     rows' 16-byte vectors from x + idx * d + k through the ring.
@@ -51,119 +51,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "stream_gram.cuh"
+#include "gathered_rows.cuh"
 
 namespace {
 
-using stream_gram::CB;
+using gathered_rows::GatheredRows;
 using stream_gram::Grid;
-using stream_gram::ROWS;
-using stream_gram::RS;
-
-// Zero and NaN of the table's type.
-template <typename Tin>
-__device__ __forceinline__ Tin fill(bool nan);
-template <>
-__device__ __forceinline__ float fill<float>(bool nan) {
-  return nan ? __int_as_float(0x7fc00000) : 0.f;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 fill<__nv_bfloat16>(bool nan) {
-  return __ushort_as_bfloat16(nan ? 0x7fc0 : 0);
-}
-
-// Row source: staged row s of side `side` of reducer r is table row
-// idx[r, slot] for slot (it or jt) * T + s % T.
-struct GatheredRows {
-  static constexpr bool kTable = true;
-  const void* x;            // (m, d) table
-  const int32_t* idx;       // (R, L)
-  const uint8_t* mask;      // (R, L)
-  int m;
-  int vec;                  // rows and base on 16-byte boundaries
-
-  // The table row of (reducer r, slot): >= 0 a row, -1 zeros (a masked
-  // slot, a slot past L or a reducer past R), -2 NaN (a valid slot outside
-  // the table).
-  __device__ __forceinline__ int source_row(const Grid& a, long long r,
-                                            int slot) const {
-    if (r >= a.R || slot >= a.M) return -1;
-    const long long o = r * a.M + slot;
-    if (!mask[o]) return -1;
-    const int row = idx[o];
-    return (row >= 0 && row < m) ? row : -2;
-  }
-
-  // Fill `table` with the table row of each staged row of item `item`:
-  // side 0 then, when `two_sides`, side 1.
-  template <int T>
-  __device__ __forceinline__ void lookup(const Grid& a, int* table,
-                                         long long item, int it, int jt,
-                                         bool two_sides) const {
-    constexpr int G = ROWS / T;
-    const long long r0 = (item / a.pairs) * G;
-    for (int row = threadIdx.x; row < (two_sides ? 2 : 1) * ROWS;
-         row += blockDim.x) {
-      const int side = row / ROWS, s = row % ROWS;
-      table[row] = source_row(a, r0 + s / T, (side ? jt : it) * T + s % T);
-    }
-  }
-
-  // Stage chunk `kc` of the rows listed in `table` into `stage`.
-  template <typename Tin, int T>
-  __device__ __forceinline__ void load(const Grid& a, unsigned char* stage,
-                                       const int* table, long long, int, int,
-                                       int kc, bool two_sides) const {
-    constexpr int VE = 16 / sizeof(Tin);         // elements per vector
-    constexpr int KC = CB / sizeof(Tin);         // elements per chunk
-    const int k0 = kc * KC;
-    const int rows = (two_sides ? 2 : 1) * ROWS;
-    const Tin* xt = static_cast<const Tin*>(x);
-    if (vec) {
-      for (int e = threadIdx.x; e < rows * (CB / 16); e += blockDim.x) {
-        const int row = e / (CB / 16), v = e % (CB / 16);
-        const int from = table[row];
-        const int k = k0 + v * VE;
-        unsigned char* dst = stage + row * RS + v * 16;
-        if (from == -2) {
-          const Tin f = fill<Tin>(k < a.K);
-          Tin* d = reinterpret_cast<Tin*>(dst);
-#pragma unroll
-          for (int u = 0; u < VE; ++u) d[u] = f;
-        } else {
-          const bool ok = from >= 0 && k < a.K;
-          cp_async16(dst,
-                     ok ? xt + static_cast<long long>(from) * a.K + k : xt,
-                     ok ? 16 : 0);
-        }
-      }
-    } else {
-      for (int e = threadIdx.x; e < rows * KC; e += blockDim.x) {
-        const int row = e / KC, c = e % KC;
-        const int from = table[row];
-        const int k = k0 + c;
-        Tin v = fill<Tin>(from == -2 && k < a.K);
-        if (from >= 0 && k < a.K)
-          v = xt[static_cast<long long>(from) * a.K + k];
-        reinterpret_cast<Tin*>(stage + row * RS)[c] = v;
-      }
-    }
-  }
-};
 
 // block = G * (T/RM) * (T/RN) threads; grid-stride over the items.
 template <typename Tin, int T, int RM, int RN>
 __global__ void __launch_bounds__(256)
     fused_gather_gram_kernel(const Grid g, const GatheredRows src) {
   extern __shared__ __align__(16) unsigned char smem[];
-  stream_gram::run<Tin, T, RM, RN>(g, src, smem);
+  stream_gram::run<Tin, T, T, RM, RN>(g, src, smem);
 }
 
 template <typename Tin, int T, int RM, int RN>
 cudaError_t launch(float* out, long long R, int L, int d,
                    const GatheredRows& rows, cudaStream_t stream) {
   const Grid g = stream_gram::schedule<T>(out, R, L, L, d, true);
-  return stream_gram::launch<T, RM, RN>(
+  return stream_gram::launch<T, T, RM, RN>(
       fused_gather_gram_kernel<Tin, T, RM, RN>, g, rows, stream);
 }
 

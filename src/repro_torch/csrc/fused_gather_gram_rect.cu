@@ -8,23 +8,139 @@
 //
 //     out[r] = X[xidx_r] . Y[yidx_r]^T          (Lx, Ly) fp32
 //
-// over two tables with independent gather maps and widths, masked slots
-// zeroed at gather time; the gathered (R, Lx, d) and (R, Ly, d) blocks are
-// never written to device memory.  The tile design is in cross_gram.cuh.
+// over two tables with independent gather maps and widths.  A masked slot
+// stands for a zero row, as in the plain version: its entries are zero
+// beside finite rows.  A valid slot whose index lies outside its table
+// gives NaN in every entry of its row (X) or column (Y) (the kernel never
+// reads outside a table; the executors reject such plans on the host).  x and y may be overlapping row slices of one table
+// (block serving passes x[i0:i1] and x[j0:j1]): they are only read.  The
+// gathered (R, Lx, d) and (R, Ly, d) blocks are never written to device
+// memory.
 //
-// Bound on an H100 SXM: the work is 2*d FLOP per valid (x, y) pair, on CUDA
-// cores in fp32 (67 TFLOP/s); the bytes are the two tables and the idx/mask
-// rows read once and the (R, Lx, Ly) fp32 output written once (3.35 TB/s).
-// On chip_smoke.py's paths every request is bound by operations: the X2Y
-// skew join (8192 x 512, d=256) and balanced (2048 x 2048) schemas cover
-// each of their 4.2M pairs once, 2.1e9 FLOP = 0.032 ms, with the bytes
-// (tables, slot rows, outputs) at 40-50% of that; the 4096^2 serving
-// blocks need 0.23-0.24 ms.  The kernel is far from either: each reducer
-// re-gathers its rows from L2 into shared memory, and one output per
-// thread leaves the FMA pipes waiting on shared-memory reads.  The
-// measured times are in PERF.md.
+// Bound on an H100 SXM: the work is 2 d FLOP per valid (x, y) pair, on CUDA
+// cores in fp32 (67 TFLOP/s; no TF32: the reference holds fp32 at 1e-5);
+// the bytes are the two tables and the idx/mask rows read once and the
+// (R, Lx, Ly) fp32 output written once (3.35 TB/s).  On chip_smoke.py's
+// paths every request is bound by operations (0.032 ms for the X2Y skew
+// join and balanced schemas, 0.23-0.24 ms for the 4096^2 serving blocks).
+// In practice the floor is the gather: each reducer stages its valid rows
+// from the tables, which stay in the 50 MB L2, a few GB per X2Y request
+// modelled from the plan (fused_gather_gram.rect_gather_bytes), at a few
+// thin dot products per row (about 0.5 FLOP per byte staged).
+//
+// Design: stream_gram.cuh's streaming register-tile Gram (persistent grid
+// over (reducer group, tile pair) items, a cp.async ring that runs across
+// items, RM x RN register tiles) with GatheredPairRows (gathered_rows.cuh)
+// as its row source:
+//   * Tile widths per side: the next power of two of the side's width,
+//     from TMIN up to TMAX; wider sides take several tiles.  Thin sides get
+//     thin tiles (the skew join's 8..39 x 1..2 buckets, balanced 2 x 2), so
+//     a block holds 128 / max(TM, TN) reducers and keeps the gather
+//     stream's bytes in flight.  Register tiles are the square kernels',
+//     halved where fewer than 16 warps would fit on an SM (two staged
+//     sides fill shared memory twice as fast as one).
+//   * Only valid slots are read from the tables: a masked slot is staged as
+//     zeros by a zero-byte cp.async, and its entries are products with that
+//     zero row, as in the plain version.  Every position of a tile pair is
+//     multiplied: the planners size each bucket to its reducers' widths and
+//     put their valid slots first.  Two ways to multiply fewer positions
+//     were measured slower on chip_smoke.py's four rect paths and dropped:
+//     putting each side's valid slots first in the kernel, and staging only
+//     valid slots with a store that scatters the products and zeroes the
+//     rest (PERF.md).
+// The constants were held against each other on an H100 with
+// tools/kernel_ab.py (--parts rect); the times are in PERF.md.
 
-#include "cross_gram.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gathered_rows.cuh"
+
+namespace {
+
+using gathered_rows::GatheredPairRows;
+using stream_gram::Grid;
+
+constexpr int TMIN = 1;       // thinnest tile of a side
+constexpr int TMAX = 32;      // widest tile; longer sides take several
+// Register tiles start as the square kernels' (4 x 4 from width 16, 2 x 2
+// from width 4, one output per thread beside a side of 2 or less) and are
+// halved while fewer than MIN_WARPS warps of the kernel fit on an SM: two
+// staged sides fill shared memory twice as fast as the square kernel's one.
+constexpr int MIN_WARPS = 16;
+constexpr int SM_SMEM = 228 * 1024;   // shared memory of an H100 SM
+
+struct RegTile {
+  int m, n;
+};
+
+// The register tile RM x RN of tiles TM x TN.
+template <int TM, int TN>
+constexpr RegTile reg_tile() {
+  constexpr int G = stream_gram::group<TM, TN>();
+  constexpr int smem =
+      stream_gram::STAGES *
+      (G * (TM + TN) * stream_gram::RS +
+       GatheredPairRows::table_ints<TM, TN>() * static_cast<int>(sizeof(int)));
+  constexpr int blocks = SM_SMEM / (smem + 1024);   // 1 KB kept per block
+  const bool thin = TM <= 2 || TN <= 2;
+  RegTile t{thin ? 1 : TM <= 8 ? 2 : TM <= 32 ? 4 : 8,
+            thin ? 1 : TN <= 8 ? 2 : TN <= 32 ? 4 : 8};
+  while (t.m * t.n > 1 &&
+         blocks * G * (TM / t.m) * (TN / t.n) < MIN_WARPS * 32 &&
+         2 * G * (TM / t.m) * (TN / t.n) <= 256) {
+    if (t.n >= t.m)
+      t.n /= 2;
+    else
+      t.m /= 2;
+  }
+  return t;
+}
+
+// block = G * (TM/RM) * (TN/RN) threads; grid-stride over the items.
+template <typename Tin, int TM, int TN, int RM, int RN>
+__global__ void __launch_bounds__(256)
+    fused_gather_gram_rect_kernel(const Grid g, const GatheredPairRows src) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  stream_gram::run<Tin, TM, TN, RM, RN>(g, src, smem);
+}
+
+template <typename Tin, int TM, int TN>
+cudaError_t launch(float* out, long long R, int Lx, int Ly, int d,
+                   const GatheredPairRows& src, cudaStream_t stream) {
+  constexpr int RM = reg_tile<TM, TN>().m, RN = reg_tile<TM, TN>().n;
+  const Grid g = stream_gram::schedule<TM, TN>(out, R, Lx, Ly, d, false);
+  return stream_gram::launch<TM, TN, RM, RN>(
+      fused_gather_gram_rect_kernel<Tin, TM, TN, RM, RN>, g, src, stream);
+}
+
+// The tile widths of (Lx, Ly): the smallest power of two >= the side, in
+// [TMIN, TMAX].
+template <typename Tin, int TM, int TN = TMIN>
+cudaError_t pick_tn(float* out, long long R, int Lx, int Ly, int d,
+                    const GatheredPairRows& src, cudaStream_t s) {
+  if constexpr (TN < TMAX) {
+    if (Ly > TN) return pick_tn<Tin, TM, 2 * TN>(out, R, Lx, Ly, d, src, s);
+  }
+  return launch<Tin, TM, TN>(out, R, Lx, Ly, d, src, s);
+}
+
+template <typename Tin, int TM = TMIN>
+cudaError_t pick_tm(float* out, long long R, int Lx, int Ly, int d,
+                    const GatheredPairRows& src, cudaStream_t s) {
+  if constexpr (TM < TMAX) {
+    if (Lx > TM) return pick_tm<Tin, 2 * TM>(out, R, Lx, Ly, d, src, s);
+  }
+  return pick_tn<Tin, TM>(out, R, Lx, Ly, d, src, s);
+}
+
+bool on_16_bytes(const void* p, int d, int item) {
+  return (static_cast<long long>(d) * item) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -37,21 +153,24 @@ int fused_gather_gram_rect_launch(const void* x, const void* y, int is_bf16,
                                   const void* yidx, const void* ymask,
                                   void* out, long long R, int Lx, int Ly,
                                   int d, int mx, int my, void* stream) {
-  cross_gram::Args a{};
-  a.x = x;
-  a.y = y;
-  a.xidx = static_cast<const int32_t*>(xidx);
-  a.xmask = static_cast<const uint8_t*>(xmask);
-  a.yidx = static_cast<const int32_t*>(yidx);
-  a.ymask = static_cast<const uint8_t*>(ymask);
-  a.out = static_cast<float*>(out);
-  a.R = R;
-  a.Lx = Lx;
-  a.Ly = Ly;
-  a.d = d;
-  a.mx = mx;
-  a.my = my;
-  return cross_gram::run(a, is_bf16, stream);
+  if (R <= 0 || Lx <= 0 || Ly <= 0) return 0;
+  if (d <= 0 || mx < 0 || my < 0) return cudaErrorInvalidValue;
+  GatheredPairRows src{};
+  src.x = x;
+  src.y = y;
+  src.xidx = static_cast<const int32_t*>(xidx);
+  src.xmask = static_cast<const uint8_t*>(xmask);
+  src.yidx = static_cast<const int32_t*>(yidx);
+  src.ymask = static_cast<const uint8_t*>(ymask);
+  src.mx = mx;
+  src.my = my;
+  const int item = is_bf16 ? 2 : 4;
+  src.vecx = on_16_bytes(x, d, item);
+  src.vecy = on_16_bytes(y, d, item);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? pick_tm<__nv_bfloat16>(o, R, Lx, Ly, d, src, s)
+                 : pick_tm<float>(o, R, Lx, Ly, d, src, s);
 }
 
 const char* fused_gather_gram_rect_error_string(int err) {

@@ -65,11 +65,16 @@ struct BlockRows {
   const void* y;        // == x on the self-Gram route
   int vec;              // rows and bases on 16-byte boundaries
 
+  template <int TM, int TN>
+  __host__ __device__ static constexpr int table_ints() { return 0; }
+
   // Stage chunk `kc` of item `item`'s rows into `stage`.
-  template <typename Tin, int T>
+  template <typename Tin, int TM, int TN>
   __device__ __forceinline__ void load(const Grid& a, unsigned char* stage,
                                        const int*, long long item, int it,
                                        int jt, int kc, bool two_sides) const {
+    static_assert(TM == TN, "square tiles");
+    constexpr int T = TM;
     constexpr int G = ROWS / T;
     constexpr int VE = 16 / sizeof(Tin);         // elements per vector
     constexpr int KC = CB / sizeof(Tin);         // elements per chunk
@@ -112,15 +117,15 @@ template <typename Tin, int T, int RM, int RN>
 __global__ void __launch_bounds__(256)
     pairwise_gram_kernel(const Grid g, const BlockRows src) {
   extern __shared__ __align__(16) unsigned char smem[];
-  stream_gram::run<Tin, T, RM, RN>(g, src, smem);
+  stream_gram::run<Tin, T, T, RM, RN>(g, src, smem);
 }
 
 template <typename Tin, int T, int RM, int RN>
 cudaError_t launch(float* out, long long B, int M, int N, int K, bool self,
                    const BlockRows& src, cudaStream_t stream) {
   const Grid g = stream_gram::schedule<T>(out, B, M, N, K, self);
-  return stream_gram::launch<T, RM, RN>(pairwise_gram_kernel<Tin, T, RM, RN>,
-                                        g, src, stream);
+  return stream_gram::launch<T, T, RM, RN>(
+      pairwise_gram_kernel<Tin, T, RM, RN>, g, src, stream);
 }
 
 template <typename Tin>

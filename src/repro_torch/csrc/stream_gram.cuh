@@ -1,41 +1,48 @@
 // Streaming register-tile Gram blocks for Hopper (sm_90a), shared by
-// pairwise_gram.cu (the rows of a batch of blocks) and fused_gather_gram.cu
-// (rows gathered from one table).  For every reducer r of a launch
+// pairwise_gram.cu (the rows of a batch of blocks), fused_gather_gram.cu
+// (rows gathered from one table) and fused_gather_gram_rect.cu (rows
+// gathered from two tables).  For every reducer r of a launch
 //
 //     out[r] = A[r] . B[r]^T           (M, N) fp32, A (M, K), B (N, K)
 //
 // where a row source policy says where each staged row of A and B comes
 // from.  The design:
-//   * A block owns 128 staged rows per side: G = 128 / T reducers of one
-//     T x T output tile pair (it, jt) (T = 1 .. 32 from the widths; wider
-//     blocks tile i and j).  The grid is persistent: a block walks its items
-//     (reducer group, tile pair) with a grid stride.
+//   * Tiles are TM x TN (1 .. 32 each from the widths, independent; wider
+//     sides take several tiles).  A block owns G = 128 / max(TM, TN)
+//     reducers of one tile pair (it, jt) and stages G * TM rows of A and
+//     G * TN rows of B per chunk.  The grid is persistent: a block walks
+//     its items (reducer group, tile pair) with a grid stride.
 //   * Rows arrive as 16-byte cp.async vectors, 128 bytes of K per row and
-//     chunk, through a STAGES-deep ring, so the next chunk is in flight
-//     while one is multiplied; the ring runs across items, so the next
-//     item's rows load under this one's last products.
+//     chunk, through a STAGES-deep ring sized to the rows staged, so the
+//     next chunk is in flight while one is multiplied; the ring runs across
+//     items, so the next item's rows load under this one's last products.
 //   * Register tiles: each thread owns RM x RN outputs (rows and columns
-//     strided by the thread grid), so one 16-byte shared-memory load feeds
-//     RN (or RM) FMAs per element, on a row stride of 144 bytes (an odd
-//     number of 16-byte units: a quarter-warp's loads fall on distinct
-//     banks).  bf16 rows are widened to fp32 as they are read; fp32 FMA, no
-//     TF32, so bf16 products are exact in fp32.
-//   * Symmetry (Grid::self: B's rows are A's rows, M == N): only the tile
-//     pairs it <= jt are items; a diagonal pair stages one side, an
-//     off-diagonal pair writes its mirror too.  With one tile per side only
-//     the thread tiles on or above the diagonal multiply, each storing its
-//     outputs twice.  Every (M, N) entry is written.
+//     strided by the (TM/RM) x (TN/RN) thread grid), so one 16-byte
+//     shared-memory load feeds RN (or RM) FMAs per element, on a row stride
+//     of 144 bytes (an odd number of 16-byte units: a quarter-warp's loads
+//     fall on distinct banks).  bf16 rows are widened to fp32 as they are
+//     read; fp32 FMA, no TF32, so bf16 products are exact in fp32.
+//   * Symmetry (Grid::self: B's rows are A's rows, M == N, TM == TN only):
+//     only the tile pairs it <= jt are items; a diagonal pair stages one
+//     side, an off-diagonal pair writes its mirror too.  With one tile per
+//     side only the thread tiles on or above the diagonal multiply, each
+//     storing its outputs twice.  Every (M, N) entry is written.
 //
 // A row source policy `Src` gives
 //   static constexpr bool kTable: it looks an item's rows up once, at the
-//     item's first chunk, into a shared table of 2 * ROWS ints per stage;
-//   template <int T> __device__ void lookup(const Grid&, int* table,
-//     long long item, int it, int jt, bool two_sides) const (only when
-//     kTable);
-//   template <typename Tin, int T> __device__ void load(const Grid&,
-//     unsigned char* stage, const int* table, long long item, int it, int jt,
-//     int kc, bool two_sides) const: stage chunk kc of the item's rows (side
-//     0 at rows [0, ROWS), side 1 at [ROWS, 2 ROWS)) at stride RS.
+//     item's first chunk, into a shared table of table_ints<TM, TN>() ints
+//     per stage;
+//   template <int TM, int TN> static constexpr int table_ints();
+//   template <int TM, int TN> __device__ void lookup(const Grid&, int*
+//     table, long long item, int it, int jt, bool two_sides) const (only
+//     when kTable; every thread calls it);
+//   template <typename Tin, int TM, int TN> __device__ void load(const
+//     Grid&, unsigned char* stage, const int* table, long long item, int
+//     it, int jt, int kc, bool two_sides) const: stage chunk kc of the
+//     item's rows (side 0 at rows [0, G TM), side 1 at [G TM, G (TM + TN)))
+//     at stride RS.  Every tile position is multiplied and every product
+//     inside (M, N) stored, so a position with no row of A or B (a masked
+//     slot, a slot past M or N, a reducer past R) is staged as zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,7 +53,7 @@
 
 namespace stream_gram {
 
-constexpr int ROWS = 128;          // staged rows per side and block
+constexpr int ROWS = 128;          // staged rows per block on the wider side
 constexpr int CB = 128;            // bytes of K per row and chunk
 constexpr int RS = CB + 16;        // staged row stride in bytes
 constexpr int STAGES = 2;          // depth of the cp.async ring
@@ -61,9 +68,16 @@ struct Grid {
   long long items;      // reducer groups x tile pairs
 };
 
-// The launch's schedule for tiles of width T.
-template <int T>
+// Reducers per block for tiles TM x TN.
+template <int TM, int TN>
+__host__ __device__ constexpr int group() {
+  return ROWS / (TM > TN ? TM : TN);
+}
+
+// The launch's schedule for tiles TM x TN.
+template <int TM, int TN = TM>
 Grid schedule(float* out, long long R, int M, int N, int K, bool self) {
+  constexpr int G = group<TM, TN>();
   Grid g{};
   g.out = out;
   g.R = R;
@@ -71,10 +85,10 @@ Grid schedule(float* out, long long R, int M, int N, int K, bool self) {
   g.N = N;
   g.K = K;
   g.self = self;
-  g.n_tm = (M + T - 1) / T;
-  g.n_tn = (N + T - 1) / T;
+  g.n_tm = (M + TM - 1) / TM;
+  g.n_tn = (N + TN - 1) / TN;
   g.pairs = self ? g.n_tm * (g.n_tm + 1) / 2 : g.n_tm * g.n_tn;
-  g.items = (R + ROWS / T - 1) / (ROWS / T) * g.pairs;
+  g.items = (R + G - 1) / G * g.pairs;
   return g;
 }
 
@@ -113,27 +127,30 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&v)[8]) {
 
 // Shared memory of one launch: the ring, and the row tables of a `kTable`
 // source.
-template <typename Src>
+template <typename Src, int TM, int TN>
 int smem_bytes(const Grid& g) {
+  constexpr int G = group<TM, TN>();
   const bool one_side = g.self && g.n_tm == 1;
-  return STAGES * ((one_side ? 1 : 2) * ROWS * RS +
-                   (Src::kTable ? 2 * ROWS * static_cast<int>(sizeof(int))
-                                : 0));
+  return STAGES * ((one_side ? G * TM : G * TM + G * TN) * RS +
+                   Src::template table_ints<TM, TN>() *
+                       static_cast<int>(sizeof(int)));
 }
 
-// The body of a kernel: block = G * (T/RM) * (T/RN) threads, grid-stride
-// over g.items, smem_bytes<Src>(g) of dynamic shared memory at `smem`.
-template <typename Tin, int T, int RM, int RN, typename Src>
+// The body of a kernel: block = G * (TM/RM) * (TN/RN) threads, grid-stride
+// over g.items, smem_bytes<Src, TM, TN>(g) of dynamic shared memory at
+// `smem`.
+template <typename Tin, int TM, int TN, int RM, int RN, typename Src>
 __device__ __forceinline__ void run(const Grid& a, const Src& src,
                                     unsigned char* smem) {
-  constexpr int G = ROWS / T;
-  constexpr int TI = T / RM, TJ = T / RN;        // thread grid of one tile
+  constexpr int G = group<TM, TN>();
+  constexpr int TI = TM / RM, TJ = TN / RN;      // thread grid of one tile
   constexpr int VE = 16 / sizeof(Tin);
   constexpr int KC = CB / sizeof(Tin);
+  constexpr int TABLE = Src::template table_ints<TM, TN>();
 
   // one side staged when A's rows are B's rows: self-Gram, one tile
   const bool one_side = a.self && a.n_tm == 1;
-  const int stage_bytes = (one_side ? 1 : 2) * ROWS * RS;
+  const int stage_bytes = (one_side ? G * TM : G * TM + G * TN) * RS;
   const int n_chunks = (a.K + KC - 1) / KC;
   const long long my_items =
       a.items > blockIdx.x ? (a.items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
@@ -143,15 +160,16 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
   // staged side means out[r] is symmetric: only the pairs ti <= tj are
   // computed, each also stored mirrored, and the spare threads (whole
   // warps, mostly) only stage rows.
-  static_assert(TI == TJ, "square thread grid");
-  constexpr int PAIRS = TI * (TI + 1) / 2;
   const int t = threadIdx.x;
   int g = t / (TI * TJ), ti = (t / TJ) % TI, tj = t % TJ;
-  if (one_side) {
-    g = t / PAIRS;
-    int u = t % PAIRS;
-    for (ti = 0; u >= TI - ti; ++ti) u -= TI - ti;
-    tj = ti + u;
+  if constexpr (TI == TJ) {
+    constexpr int PAIRS = TI * (TI + 1) / 2;
+    if (one_side) {
+      g = t / PAIRS;
+      int u = t % PAIRS;
+      for (ti = 0; u >= TI - ti; ++ti) u -= TI - ti;
+      tj = ti + u;
+    }
   }
   const bool active = g < G;
 
@@ -165,16 +183,16 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
       int it, jt;
       tile_pair(a, item, it, jt);
       const bool two_sides = !(a.self && it == jt);
-      int* table = tables + ((s / n_chunks) % STAGES) * 2 * ROWS;
+      int* table = tables + ((s / n_chunks) % STAGES) * TABLE;
       const int kc = static_cast<int>(s % n_chunks);
       if constexpr (Src::kTable) {
         if (kc == 0) {
-          src.template lookup<T>(a, table, item, it, jt, two_sides);
+          src.template lookup<TM, TN>(a, table, item, it, jt, two_sides);
           __syncthreads();
         }
       }
-      src.template load<Tin, T>(a, smem + (s % STAGES) * stage_bytes, table,
-                                item, it, jt, kc, two_sides);
+      src.template load<Tin, TM, TN>(a, smem + (s % STAGES) * stage_bytes,
+                                     table, item, it, jt, kc, two_sides);
     }
     cp_async_commit();              // empty groups keep the count uniform
   };
@@ -198,8 +216,8 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
     const unsigned char* st = smem + (s % STAGES) * stage_bytes;
     // B's rows: the A rows themselves on a diagonal self-Gram pair
     const bool shared = a.self && it == jt;
-    const unsigned char* sa = st + (g * T) * RS;
-    const unsigned char* sb = st + ((shared ? 0 : ROWS) + g * T) * RS;
+    const unsigned char* sa = st + (g * TM) * RS;
+    const unsigned char* sb = st + ((shared ? 0 : G * TM) + g * TN) * RS;
 #pragma unroll
     for (int k = 0; k < KC && active; k += VE) {
       float av[RM][VE], bv[RN][VE];
@@ -229,10 +247,10 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
         const bool mirror = a.self && (one_side ? ti != tj : it != jt);
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
-          const int row = it * T + ti + TI * i;
+          const int row = it * TM + ti + TI * i;
 #pragma unroll
           for (int j = 0; j < RN; ++j) {
-            const int col = jt * T + tj + TJ * j;
+            const int col = jt * TN + tj + TJ * j;
             if (row < a.M && col < a.N) {
               o[static_cast<long long>(row) * a.N + col] = acc[i][j];
               if (mirror)
@@ -252,14 +270,16 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
   cp_async_wait<0>();
 }
 
-// Launch `kernel` (a __global__ wrapper of run<Tin, T, RM, RN, Src>) on a
-// persistent grid: as many blocks as fit on the card at once, at most one
-// per item.
-template <int T, int RM, int RN, typename Src>
+// Launch `kernel` (a __global__ wrapper of run<Tin, TM, TN, RM, RN, Src>)
+// on a persistent grid: as many blocks as fit on the card at once, at most
+// one per item.
+template <int TM, int TN, int RM, int RN, typename Src>
 cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
                    cudaStream_t stream) {
-  constexpr int threads = ROWS / T * (T / RM) * (T / RN);
-  const int shmem = smem_bytes<Src>(g);
+  constexpr int threads = group<TM, TN>() * (TM / RM) * (TN / RN);
+  static_assert(threads <= 256, "the kernels are bounded at 256 threads");
+  if (g.self && TM != TN) return cudaErrorInvalidValue;
+  const int shmem = smem_bytes<Src, TM, TN>(g);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
   if (err != cudaSuccess) return err;

@@ -39,11 +39,17 @@ from .. import _build
 __all__ = ["fused_gather_gram", "fused_gather_gram_ref",
            "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
            "gather_bytes", "gather_rows", "ieee_fp32", "launch_count",
-           "reset_launch_count", "tile_width"]
+           "rect_gather_bytes", "rect_tile_widths", "reset_launch_count",
+           "tile_width"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]
 _RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+# the rect kernel's tile widths per side (TMIN / TMAX in
+# csrc/fused_gather_gram_rect.cu)
+RECT_TMIN, RECT_TMAX = 1, 32
+_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+_INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def tile_width(L: int) -> int:
@@ -64,6 +70,29 @@ def gather_bytes(mask, d: int, itemsize: int) -> int:
     L = mask.shape[1]
     n_t = -(-L // tile_width(L))
     return int(mask.sum()) * n_t * d * itemsize
+
+
+def rect_tile_widths(Lx: int, Ly: int) -> tuple:
+    """The rect kernel's tile widths ``(TM, TN)`` for a bucket of widths
+    ``(Lx, Ly)``: per side the smallest power of two >= the width, within
+    ``[RECT_TMIN, RECT_TMAX]`` (wider sides take ``ceil(L / T)`` tiles)."""
+    if Lx < 1 or Ly < 1:
+        raise ValueError(f"bucket widths {Lx} x {Ly}: want >= 1")
+    return tuple(min(RECT_TMAX, max(RECT_TMIN, 1 << (L - 1).bit_length()))
+                 for L in (Lx, Ly))
+
+
+def rect_gather_bytes(xmask, ymask, d: int, itemsize: int) -> int:
+    """Table bytes the rect kernel's gather streams for one bucket with
+    ``(R, Lx)`` / ``(R, Ly)`` masks: a tile pair stages the valid slots of
+    its X tile and its Y tile, so every valid X slot's row of ``d``
+    elements is read ``ceil(Ly / TN)`` times and every valid Y slot's
+    ``ceil(Lx / TM)`` times; masked slots are zero-filled and read
+    nothing.  With the tables in L2 this is the kernel's L2 read stream."""
+    Lx, Ly = xmask.shape[1], ymask.shape[1]
+    TM, TN = rect_tile_widths(Lx, Ly)
+    rows = int(xmask.sum()) * -(-Ly // TN) + int(ymask.sum()) * -(-Lx // TM)
+    return rows * d * itemsize
 
 
 def launch_count() -> int:
@@ -128,12 +157,11 @@ def _cuda_operands(tables, index_pairs):
     """Check what the kernels take — one CUDA device, fp32 or bf16 tables
     of one dtype, int32 indices, bool/uint8 masks, all contiguous — and
     return the masks as uint8 views."""
-    dev = tables[0].device
-    if any(t.device != dev for t in tables) or any(
-            a.device != dev for pair in index_pairs for a in pair):
+    dev, dtype = tables[0].device, tables[0].dtype
+    arrays = (*tables, *(a for pair in index_pairs for a in pair))
+    if any(a.device != dev for a in arrays):
         raise ValueError("tables, indices and masks must lie on one device")
-    if tables[0].dtype not in (torch.float32, torch.bfloat16) or any(
-            t.dtype != tables[0].dtype for t in tables):
+    if dtype not in _TABLE_DTYPES or any(t.dtype != dtype for t in tables):
         raise TypeError(f"table dtypes {[t.dtype for t in tables]}: want "
                         "float32 or bfloat16, one dtype for all")
     masks = []
@@ -145,10 +173,9 @@ def _cuda_operands(tables, index_pairs):
         elif mask.dtype != torch.uint8:
             raise TypeError(f"mask dtype {mask.dtype}: want bool or uint8")
         masks.append(mask)
-    if not all(a.is_contiguous() for a in
-               (*tables, *(a for pair in index_pairs for a in pair))):
+    if not all(a.is_contiguous() for a in arrays):
         raise ValueError("tables, indices and masks must be contiguous")
-    if any(t.shape[0] > torch.iinfo(torch.int32).max for t in tables):
+    if any(t.shape[0] > _INT32_MAX for t in tables):
         raise ValueError("table rows overflow int32 indices")
     return masks
 
@@ -205,8 +232,13 @@ def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  ``x`` and ``y`` may be row slices of one table, even
     overlapping ones (block serving passes ``x[i0:i1]`` and ``x[j0:j1]``):
-    the kernel only reads them.  A valid slot outside its table gives NaN
-    entries on the card, as for the square kernel."""
+    the kernel only reads them.  Entry ``(i, j)`` is the product of X slot
+    ``i``'s row and Y slot ``j``'s row, a masked slot standing for a zero
+    row: zero beside a finite row, NaN beside an Inf or NaN one, in the
+    kernel as in the plain version.  Valid slots must index rows of their
+    tables: the plain version raises otherwise, and the kernel gives NaN
+    for every entry of that slot's row (X) or column (Y) (it never reads
+    outside a table).  The kernel reads only valid slots' rows."""
     if (xidx.dim() != 2 or xmask.shape != xidx.shape or yidx.dim() != 2
             or ymask.shape != yidx.shape or yidx.shape[0] != xidx.shape[0]
             or x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]):

@@ -302,6 +302,181 @@ def test_rect_kernel_edges(cuda):
         fused_gather_gram_rect_ref(xs, ys, idx, m, idx, m), **FP32)
 
 
+def _valid_first(mask):
+    """A mask as the planners build them: each row's valid slots first."""
+    return mask.sort(dim=1, descending=True, stable=True).values
+
+
+def _check_rect(args):
+    got = fused_gather_gram_rect(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, fused_gather_gram_rect_ref(*args),
+        **(FP32 if args[0].dtype == torch.float32 else BF16))
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rect_kernel_every_tile_pair(cuda, dtype):
+    """Every tile pair (TM, TN) the dispatch picks (1 .. 32 a side, and a
+    side of two tiles), on random masks (valid slots anywhere) and on
+    valid-first masks (as the planners build them); R = 37 is no whole
+    number of blocks for any pair."""
+    dt = getattr(torch, dtype)
+    widths = (1, 2, 3, 5, 9, 17, 33)
+    seen = set()
+    for Lx in widths:
+        for Ly in widths:
+            seen.add(fgg_mod.rect_tile_widths(Lx, Ly))
+            args = list(_rect_inputs(Lx * 100 + Ly, 37, Lx, Ly, 60, 50, 40,
+                                     cuda, dt))
+            _check_rect(args)
+            args[3], args[5] = _valid_first(args[3]), _valid_first(args[5])
+            _check_rect(args)
+    assert len(seen) == 36
+
+
+@pytest.mark.parametrize("Lx,Ly", [(8, 1), (39, 2), (2, 2), (1, 3), (3, 3),
+                                   (16, 32), (32, 16), (16, 38), (41, 16),
+                                   (41, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rect_kernel_on_the_paths_bucket_shapes(cuda, Lx, Ly, dtype):
+    """The X2Y and block serving buckets' shapes at d = 256, on
+    valid-first masks as the planners build them."""
+    args = list(_rect_inputs(Lx * 7 + Ly, 301, Lx, Ly, 900, 700, 256, cuda,
+                             getattr(torch, dtype), p_valid=0.6))
+    args[3], args[5] = _valid_first(args[3]), _valid_first(args[5])
+    _check_rect(args)
+
+
+@pytest.mark.parametrize("R,Lx,Ly", [(100_003, 2, 2), (20_001, 16, 32),
+                                     (30_011, 8, 1)])
+def test_rect_kernel_more_items_than_resident_blocks(cuda, R, Lx, Ly):
+    """The persistent grid walks many items per block, and the last reducer
+    group is partial."""
+    _check_rect(_rect_inputs(R + Lx, R, Lx, Ly, 2000, 1500, 64, cuda))
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 33), ("bfloat16", 100),
+                                     ("float32", 64), ("bfloat16", 128)])
+@pytest.mark.parametrize("side", ["x", "y"])
+def test_rect_kernel_one_side_off_16_bytes(cuda, dtype, d, side):
+    """One side's table starts off 16 bytes and the other does not: a slice
+    at an odd row of a table whose rows are not 16-byte multiples (fp32
+    d = 33, bf16 d = 100), or a table that begins one element into its
+    buffer (fp32 d = 64, bf16 d = 128, rows of whole vectors)."""
+    dt = getattr(torch, dtype)
+    x, y, xidx, xmask, yidx, ymask = _rect_inputs(d, 70, 20, 12, 61, 41, d,
+                                                  cuda, dt)
+    t = x if side == "x" else y
+    if d in (33, 100):
+        big = torch.randn(t.shape[0] + 1, d, device=cuda).to(dt)
+        big[1:] = t
+        t = big[1:]
+    else:
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=dt)
+        buf[1:] = t.reshape(-1)
+        t = buf[1:].view(t.shape)
+    assert t.data_ptr() % 16 != 0 and t.is_contiguous()
+    args = (t, y, xidx, xmask, yidx, ymask) if side == "x" else (
+        x, t, xidx, xmask, yidx, ymask)
+    _check_rect(args)
+
+
+@pytest.mark.parametrize("side", ["x", "y"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rect_kernel_outside_index_gives_nan_in_its_row_or_column(
+        cuda, side, dtype):
+    """A valid slot past its table, on a block of two tiles a side: NaN in
+    its whole row (X) or column (Y), beside the other side's masked slots
+    too (NaN times their zero rows, as in the square kernel), and nowhere
+    else; the rest matches the plain version."""
+    R, Lx, Ly, mx, my = 6, 41, 37, 50, 40
+    x, y, xidx, xmask, yidx, ymask = _rect_inputs(
+        7, R, Lx, Ly, mx, my, 40, cuda, getattr(torch, dtype))
+    bad = torch.zeros((R, Lx, Ly), dtype=torch.bool, device=cuda)
+    if side == "x":
+        xmask[4, 35], xidx[4, 35] = True, mx + 3
+        bad[4, 35, :] = True
+    else:
+        ymask[4, 30], yidx[4, 30] = True, my
+        bad[4, :, 30] = True
+    got = fused_gather_gram_rect(x, y, xidx, xmask, yidx, ymask)
+    torch.cuda.synchronize()
+    assert bool(got[bad].isnan().all()) and not bool(got[~bad].isnan().any())
+    if side == "x":
+        xidx[4, 35] = 0
+    else:
+        yidx[4, 30] = 0
+    want = fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
+    torch.testing.assert_close(got[~bad], want[~bad],
+                               **(FP32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rect_kernel_empty_and_short_reducers(cuda, dtype):
+    """All-masked reducers give exact zeros; reducers whose valid slots
+    fit a narrower tile (or end inside the first of two), in slot order and
+    out of it, match the plain version."""
+    R, Lx, Ly = 40, 41, 16
+    x, y, xidx, xmask, yidx, ymask = _rect_inputs(
+        11, R, Lx, Ly, 90, 70, 64, cuda, getattr(torch, dtype), p_valid=1.0)
+    for r in range(R):
+        nx, ny = (0, 3, 7, 31, 41)[r % 5], (0, 1, 5, 16)[r % 4]
+        xmask[r, nx:], ymask[r, ny:] = False, False
+        if r % 2:                        # valid slots not first
+            xmask[r] = xmask[r].flip(0)
+            ymask[r] = ymask[r].flip(0)
+    got = _check_rect((x, y, xidx, xmask, yidx, ymask))
+    empty = (xmask.sum(1) == 0) | (ymask.sum(1) == 0)
+    assert bool(empty.any()) and float(got[empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Lx,Ly", [(8, 2), (16, 32), (41, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rect_kernel_non_finite_rows_match_the_plain_version(
+        cuda, Lx, Ly, dtype):
+    """Tables with Inf and NaN rows: a masked slot stands for a zero row in
+    the kernel as in the plain version, so its entries beside an Inf or NaN
+    row are NaN, and beside finite rows zero."""
+    R, mx, my = 50, 60, 40
+    x, y, xidx, xmask, yidx, ymask = _rect_inputs(
+        Lx + Ly, R, Lx, Ly, mx, my, 64, cuda, getattr(torch, dtype))
+    x[3, 5], x[7, 0], y[2, 63] = float("inf"), float("-inf"), float("nan")
+    xidx[:, 0], xmask[:, 0] = 3, True          # an Inf row in every reducer
+    yidx[::2, 0], ymask[::2, 0] = 2, True      # a NaN row in half of them
+    xidx[1::3, -1] = 7
+    ymask[:, -1] = False                       # masked beside the Inf rows
+    got = fused_gather_gram_rect(x, y, xidx, xmask, yidx, ymask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask),
+        equal_nan=True, **(FP32 if dtype == "float32" else BF16))
+    assert bool(got[:, 0, -1].isnan().all())
+    finite = ~(xmask[:, :, None] & ymask[:, None, :]) & \
+        torch.isfinite(fgg_mod.gather_rows(x, xidx, xmask)).all(-1)[
+            :, :, None] & \
+        torch.isfinite(fgg_mod.gather_rows(y, yidx, ymask)).all(-1)[
+            :, None, :]
+    assert bool(finite.any()) and float(got[finite].abs().max()) == 0.0
+
+
+def test_rect_kernel_same_slice_same_plan(cuda):
+    """x and y the same row slice of one table with the same idx and mask
+    (block serving's diagonal block): the rect kernel agrees with the
+    plain version and with the square kernel."""
+    t = torch.randn(300, 64, device=cuda)
+    xs = t[7:207]
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, 200, (90, 16)).astype(
+        np.int32)).to(cuda)
+    mask = _valid_first(torch.from_numpy(
+        rng.uniform(size=(90, 16)) < 0.7).to(cuda))
+    got = _check_rect((xs, xs, idx, mask, idx, mask))
+    torch.testing.assert_close(got, fused_gather_gram(xs, idx, mask),
+                               **FP32)
+
+
 PAIRWISE_CASES = [
     (1000, 1, 1, 64),       # B not a multiple of the 32 reducers per block
     (300, 2, 2, 33),        # rows off 16 bytes: element loads

@@ -20,6 +20,7 @@ from repro.kernels.pairwise.fused_gather_gram import (
 from repro.kernels.pairwise.fused_gather_gram import (
     fused_gather_gram_streamed as jax_fused_gather_gram_streamed,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels.pairwise import fused_gather_gram as fgg_mod
 from repro_torch.kernels.pairwise.fused_gather_gram import (
     fused_gather_gram,
@@ -152,4 +153,97 @@ def test_gather_bytes_counts_the_kernels_staged_rows(R, L):
                     rows += sum(bool(mask[r, s]) for s in slots)
     assert fgg_mod.gather_bytes(mask, d, item) == rows * d * item
     assert fgg_mod.gather_bytes(torch.from_numpy(mask), d, item) == \
+        rows * d * item
+
+
+# ---------------------------------------------------------------------------
+# the rect kernel's host helpers and semantics: tile choice, gather bytes,
+# masked slots beside non-finite rows
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("Lx,Ly,tiles", [
+    (1, 1, (1, 1)), (8, 1, (8, 1)), (39, 2, (32, 2)), (2, 2, (2, 2)),
+    (1, 3, (1, 4)), (3, 3, (4, 4)), (16, 32, (16, 32)), (41, 16, (32, 16)),
+    (5, 17, (8, 32)), (130, 70, (32, 32)),
+])
+def test_rect_tile_widths(Lx, Ly, tiles):
+    assert fgg_mod.rect_tile_widths(Lx, Ly) == tiles
+
+
+def test_rect_tile_widths_follow_the_kernel_source():
+    """The Python mirror of the kernel's dispatch reads the same TMIN /
+    TMAX as ``csrc/fused_gather_gram_rect.cu``."""
+    import re
+    src = (_build.CSRC_DIR / "fused_gather_gram_rect.cu").read_text()
+    tmin = int(re.search(r"constexpr int TMIN = (\d+);", src).group(1))
+    tmax = int(re.search(r"constexpr int TMAX = (\d+);", src).group(1))
+    assert (fgg_mod.RECT_TMIN, fgg_mod.RECT_TMAX) == (tmin, tmax)
+    with pytest.raises(ValueError):
+        fgg_mod.rect_tile_widths(0, 3)
+
+
+@pytest.mark.parametrize("R,Lx,Ly", [(4, 3, 2), (3, 8, 1), (2, 39, 2),
+                                     (3, 16, 32), (2, 41, 5)])
+def test_rect_plain_masked_slot_is_a_zero_row_beside_non_finite_rows(
+        R, Lx, Ly):
+    """The semantics the rect kernel shares with the plain version and the
+    JAX reference: a masked slot stands for a zero row, so its entries are
+    zero beside finite rows and NaN beside an Inf or NaN row (0 * Inf);
+    a valid pair with an Inf row is Inf or NaN by the other row's signs."""
+    import jax
+    from repro.kernels.pairwise.fused_gather_gram import (
+        fused_gather_gram_rect_ref as jax_rect_ref,
+    )
+    rng = np.random.default_rng(R * Lx + Ly)
+    mx, my, d = 30, 20, 7
+    x = rng.normal(size=(mx, d)).astype(np.float32)
+    y = rng.normal(size=(my, d)).astype(np.float32)
+    x[3, 2], y[5, 0] = np.inf, np.nan
+    xidx = rng.integers(0, mx, (R, Lx)).astype(np.int32)
+    yidx = rng.integers(0, my, (R, Ly)).astype(np.int32)
+    xmask = rng.uniform(size=(R, Lx)) < 0.6
+    ymask = rng.uniform(size=(R, Ly)) < 0.6
+    xidx[0, 0], xmask[0, 0] = 3, True          # a valid Inf row
+    ymask[0, -1] = False                       # ... beside a masked slot
+    yidx[-1, 0], ymask[-1, 0] = 5, True        # a valid NaN row
+    xmask[-1, -1] = False
+    # the reference multiplies a masked slot's row by 0, the port never
+    # reads it: point masked slots at a finite row so both see zero rows
+    xidx[~xmask], yidx[~ymask] = 0, 0
+    args = (x, y, xidx, xmask, yidx, ymask)
+    got = fgg_mod.fused_gather_gram_rect(
+        *(torch.from_numpy(a) for a in args)).numpy()
+    want = np.asarray(jax.jit(jax_rect_ref)(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.isnan(got[0, 0, -1]) and np.isnan(got[-1, -1, 0])
+    finite = np.isfinite(x[np.where(xmask, xidx, 0)]).all(-1)[:, :, None] & \
+        np.isfinite(y[np.where(ymask, yidx, 0)]).all(-1)[:, None, :]
+    masked = ~(xmask[:, :, None] & ymask[:, None, :])
+    assert (got[masked & finite] == 0).all()
+
+
+@pytest.mark.parametrize("R,Lx,Ly", [(7, 3, 1), (5, 39, 2), (4, 16, 32),
+                                     (3, 41, 37), (2, 130, 5), (6, 8, 2),
+                                     (9, 2, 2), (3, 16, 38), (4, 41, 16),
+                                     (2, 32, 38), (5, 1, 3)])
+def test_rect_gather_bytes_counts_the_kernels_staged_rows(R, Lx, Ly):
+    """``rect_gather_bytes`` against the kernel's schedule walked item by
+    item: every tile pair (it, jt) reads the rows of the valid slots among
+    slots ``[it TM, it TM + TM)`` on the X side and ``[jt TN, jt TN + TN)``
+    on the Y side; masked slots are zero-filled and read nothing."""
+    rng = np.random.default_rng(R * Lx + Ly)
+    xmask = rng.uniform(size=(R, Lx)) < 0.6
+    ymask = rng.uniform(size=(R, Ly)) < 0.6
+    d, item = 24, 2
+    TM, TN = fgg_mod.rect_tile_widths(Lx, Ly)
+    n_tm, n_tn = -(-Lx // TM), -(-Ly // TN)
+    rows = 0
+    for r in range(R):
+        for it in range(n_tm):
+            for jt in range(n_tn):
+                rows += int(xmask[r, it * TM:it * TM + TM].sum())
+                rows += int(ymask[r, jt * TN:jt * TN + TN].sum())
+    assert fgg_mod.rect_gather_bytes(xmask, ymask, d, item) == \
+        rows * d * item
+    assert fgg_mod.rect_gather_bytes(torch.from_numpy(xmask),
+                                     torch.from_numpy(ymask), d, item) == \
         rows * d * item

@@ -71,3 +71,20 @@ def test_split3_emulation_tracks_the_plain_scan(S, chunk):
     one = ssd_scan_chunked(r(x), la, r(b), r(c), chunk=chunk)
     assert float((one - want).abs().max()) > 10 * float(
         (got - want).abs().max())
+
+
+@pytest.mark.parametrize("name", ["rect", "rect_tmin4", "rect_tmax64",
+                                  "rect_stages3", "rect_chunk64",
+                                  "rect_square_tiles"])
+def test_rect_variants_change_one_line(name):
+    """The rect part compares the committed kernel (``rect``, no edit) with
+    variants that each change one design constant: one line of one
+    file."""
+    ab = _kernel_ab()
+    lib, edited, edits = ab.VARIANTS[name]
+    assert lib == "fused_gather_gram_rect"
+    committed = (ab.CSRC / edited).read_text().splitlines()
+    out = ab.edited_sources(name)[edited].splitlines()
+    changed = [a for a, b in zip(committed, out) if a != b]
+    assert len(out) == len(committed)
+    assert len(changed) == len(edits)

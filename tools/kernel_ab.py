@@ -20,11 +20,19 @@ variant on the same inputs in one process:
   against the 2e-4 contract;
 * ``gram``: ``pairwise_gram`` and ``fused_gather_gram`` with a 2- and a
   3-stage cp.async ring (``STAGES`` in ``stream_gram.cuh``) on the buckets
-  of chip_smoke's m=4096 request, timed in the order A B B A.
+  of chip_smoke's m=4096 request, timed in the order A B B A;
+* ``rect``: ``fused_gather_gram_rect`` as committed against one design
+  constant changed at a time: no tile thinner than 4 (``TMIN``), one 64-row
+  tile for sides of 33-64 slots instead of two of 32 (``TMAX``), a 3-stage
+  ring, 64-byte chunks (``CB``) and the square kernels' register tiles
+  kept where few warps fit on an SM (``MIN_WARPS``), on every bucket of
+  chip_smoke's four rect paths (X2Y skew and balanced, the two serving
+  blocks), fp32 and bf16, each variant held against the plain version and
+  timed A B B A beside the committed one.
 
 Run from the repository root on a machine with a card and nvcc::
 
-    python3 tools/kernel_ab.py [--parts ssd,fp32,gram] [--out FILE]
+    python3 tools/kernel_ab.py [--parts ssd,fp32,gram,rect] [--out FILE]
 
 Every number is printed and, with ``--out``, written as JSON.
 """
@@ -85,6 +93,20 @@ VARIANTS = {
        for k, v in _SPLITS.items()},
     **{f"{lib}_stages{n}": (lib, "stream_gram.cuh", stage_edits(n))
        for lib in ("pairwise_gram", "fused_gather_gram") for n in (2, 3)},
+    # the rect kernel as committed, then one design constant changed
+    "rect": ("fused_gather_gram_rect", "fused_gather_gram_rect.cu", []),
+    "rect_tmin4": ("fused_gather_gram_rect", "fused_gather_gram_rect.cu", [
+        (r"constexpr int TMIN = 1;", "constexpr int TMIN = 4;")]),
+    "rect_tmax64": ("fused_gather_gram_rect", "fused_gather_gram_rect.cu", [
+        (r"constexpr int TMAX = 32;", "constexpr int TMAX = 64;")]),
+    "rect_stages3": ("fused_gather_gram_rect", "stream_gram.cuh",
+                     stage_edits(3)),
+    "rect_chunk64": ("fused_gather_gram_rect", "stream_gram.cuh", [
+        (r"constexpr int CB = 128;", "constexpr int CB = 64;")]),
+    "rect_square_tiles": ("fused_gather_gram_rect",
+                          "fused_gather_gram_rect.cu",
+                          [(r"constexpr int MIN_WARPS = 16;",
+                            "constexpr int MIN_WARPS = 0;")]),
 }
 
 
@@ -370,9 +392,84 @@ def part_gram(libs) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ rect
+
+def rect_paths() -> list:
+    """(path, x, y, plan) of chip_smoke's four rect paths: X2Y skew and
+    balanced, and the two serving blocks of the m=100,000 table."""
+    from repro_torch.mapreduce.engine import block_subplan
+    out = []
+    for kind in ("skew", "balanced"):
+        case = cs.x2y_host(kind)
+        out.append((f"x2y_{kind}", case["x"], case["y"], case["plan"]))
+    w, xn = cs.block_profile(cs.M_BLOCK)
+    svc = cs.PairwiseService(q=cs.Q_BLOCK, executor="fused", metric="dot")
+    svc.load_block_table(xn, w)
+    x = svc._block_table
+    for i0, i1, j0, j1 in cs.BLOCKS:
+        out.append((f"block_{i0}_{j0}", x[i0:i1], x[j0:j1],
+                    block_subplan(svc._block_sparse, i0, i1, j0, j1)))
+    return out
+
+
+def part_rect(libs) -> dict:
+    """Each rect variant against the committed kernel, bucket by bucket of
+    the four paths, in fp32 and bf16: the plain version's check, then A B
+    B A times (ms per launch) summed per path."""
+    from repro_torch.mapreduce.engine import rect_bucket_arrays
+    others = [n for n in VARIANTS if n.startswith("rect_")]
+    fns = {n: entry(libs, n, fgg._RECT_ARGS) for n in ["rect", *others]}
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for path, x, y, plan in rect_paths():
+        for dtype in (torch.float32, torch.bfloat16):
+            xt, yt = x.to(dtype), y.to(dtype)
+            key = f"{path}_{str(dtype).split('.')[1]}"
+            tot = {}
+            for b, arr in zip(plan.buckets, rect_bucket_arrays(plan,
+                                                               x.device)):
+                xi, xm, yi, ym = arr[:4]
+                out = torch.empty((b.R, b.width, b.ywidth), device="cuda")
+                want = fgg.fused_gather_gram_rect_ref(xt, yt, xi, xm, yi, ym)
+                args = (xt.data_ptr(), yt.data_ptr(),
+                        int(dtype == torch.bfloat16), xi.data_ptr(),
+                        xm.view(torch.uint8).data_ptr(), yi.data_ptr(),
+                        ym.view(torch.uint8).data_ptr(), out.data_ptr(), b.R,
+                        b.width, b.ywidth, xt.shape[1], xt.shape[0],
+                        yt.shape[0], stream)
+                calls = {
+                    n: (lambda f=f, n=n: checked(f(*args), f"rect {n}"))
+                    for n, f in fns.items()}
+                for name, fn in calls.items():
+                    out.fill_(float("nan"))
+                    fn()
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(
+                        out, want, **(cs.FP32 if dtype == torch.float32
+                                      else cs.BF16),
+                        msg=lambda m: f"{name} {key} {b.width}x{b.ywidth}: "
+                                      f"{m}")
+                row = {}
+                for other in others:
+                    for name in ("rect", other, other, "rect"):
+                        row.setdefault(name, 0.0)
+                        row[name] += cs.time_cuda(calls[name], 10) / (
+                            2 * len(others) if name == "rect" else 2)
+                for k, v in row.items():
+                    tot[k] = tot.get(k, 0.0) + v
+                cs.log(f"rect {key} bucket {b.width}x{b.ywidth} R={b.R}: "
+                       + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+                del out, want
+            cs.log(f"rect {key} request: " + ", ".join(
+                f"{k} {v:.4f} ms ({v / tot['rect']:.3f})"
+                for k, v in tot.items()))
+            res[key] = tot
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parts", default="ssd,fp32,gram")
+    ap.add_argument("--parts", default="ssd,fp32,gram,rect")
     ap.add_argument("--out", help="also write every number here (JSON)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -383,7 +480,9 @@ def main() -> int:
     card = cs.phase_device()
     names = [n for n in VARIANTS
              if ("ssd" in parts and n.startswith("ssd_"))
-             or ("gram" in parts and not n.startswith("ssd_"))]
+             or ("rect" in parts and n.startswith("rect"))
+             or ("gram" in parts
+                 and n.startswith(("pairwise_gram_", "fused_gather_gram_")))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         built = list(pool.map(build_variant, names))
@@ -403,6 +502,8 @@ def main() -> int:
         result["fp32"] = part_fp32()
     if "gram" in parts:
         result["gram"] = part_gram(libs)
+    if "rect" in parts:
+        result["rect"] = part_rect(libs)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1, default=str))
