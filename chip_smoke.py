@@ -21,6 +21,22 @@ just before it and read just after):
   4096 x 4096 blocks (phase 9);
 * all-pairs with ``use_kernel=True`` on bucketed and dense ->
   ``pairwise_gram`` (phase 10);
+* some-pairs similarity, ``PairwiseService(executor='fused').some_pairs``
+  -> ``fused_gather_gram`` (one launch per bucket, nothing else): the main
+  path's table, with the pairs that ``examples/some_pairs.py``'s blocker
+  keeps (a 4-hyperplane sign signature, ~1/16 of all pairs; phase 16);
+* streaming A2A, ``PairwiseService(executor='streaming', use_kernel=True)``
+  on the main path's table with ``benchmarks/bench_stream.py``'s planner
+  thresholds: ``load_table`` -> ``fused_gather_gram`` (cold build) and
+  ``pairwise_gram`` (the warmed delta shapes), then 48 seeded edits (16
+  each of ``add_input`` / ``remove_input`` / ``update_weight``), each
+  executed delta -> ``pairwise_gram`` once per bucket of its dirty sub-plan
+  (phase 17);
+* streaming X2Y, ``StreamingExecutor.run_x2y`` on an
+  ``IncrementalX2YPlanner`` over the skew profile (8192 x 512) ->
+  ``fused_gather_gram_rect`` (cold build), then 16 seeded edits, whose
+  deltas reach no hand-written kernel (their reducer is a torch product,
+  as in the reference; phase 18);
 * LM serving on jamba-1.5-large-398b at its published widths with the
   depth cut to 3 layers (attention + dense FFN, Mamba + MoE, Mamba +
   dense; 12.37 B parameters made on the card from seed 0): the prefill ->
@@ -44,9 +60,13 @@ skew and balanced, the two blocks) and ``pairwise_gram`` per bucket, each
 beside ``torch.bmm`` on the pre-gathered blocks and its bound, the rect
 kernel also beside the table bytes its gather stages (modelled from the
 plan), and the summary sets ``fused_gather_gram`` beside ``pairwise_gram``
-per bucket.  Flash is timed beside SDPA in the
-same call; flash and SSD with their ms per launch, share of bound and
-achieved TFLOP/s.
+per bucket.  Phases 16-18 run after phase 11 and before the LM phases:
+they time the some-pairs kernel and every edit (planner and patch), hold
+every kernel launch against its plain version and every matrix against
+x·xᵀ / x·yᵀ, and check that the first edit after a warmed ``load_table``
+builds no library and brings no new table signature.  Flash is timed
+beside SDPA in the same call; flash and SSD with their ms per launch,
+share of bound and achieved TFLOP/s.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device it exits 2 before printing any result.  The last two lines are the
 ``kernels`` JSON record and the device JSON record.
@@ -72,7 +92,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import plan_a2a, plan_x2y  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    plan_a2a,
+    plan_some_pairs,
+    plan_x2y,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash.flash_attention import (  # noqa: E402
@@ -85,9 +109,11 @@ from repro_torch.mapreduce import (  # noqa: E402
     make_executor,
     pairwise_similarity,
     skew_join,
+    table_signatures,
     x2y_similarity,
 )
 from repro_torch.mapreduce.allpairs import (  # noqa: E402
+    _block_fn_x2y,
     _plan_for,
     _x2y_plan_for,
 )
@@ -104,6 +130,10 @@ from repro_torch.serve import (  # noqa: E402
     BatchedServer,
     PairwiseService,
     Request,
+)
+from repro_torch.stream import (  # noqa: E402
+    IncrementalX2YPlanner,
+    StreamingExecutor,
 )
 
 M, D, Q, ZIPF_A, SEED = 4096, 256, 1.0, 1.6, 0
@@ -980,6 +1010,371 @@ def phase_timing_new(skew, bal, blocks, x, plan) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# some-pairs similarity and streaming (phases 16-18)
+# ---------------------------------------------------------------------------
+SP_PLANES = 4                       # examples/some_pairs.py's blocker
+# benchmarks/bench_stream.py's planner thresholds
+STREAM_MAX_GAP, STREAM_REPACK_GAP = 1.2, 1.03
+STREAM_EDITS = 16                   # of each of add / remove / update
+STREAM_CHECK_EVERY = 8
+X2Y_STREAM_EDITS = 4                # of each of the four X2Y edit kinds
+
+
+def required_pairs(x_np) -> np.ndarray:
+    """``examples/some_pairs.py``'s blocking step: a 4-hyperplane sign
+    signature of the features; pairs with equal signatures are required
+    (about 1/16 of all pairs)."""
+    planes = np.random.default_rng(SEED + 3).normal(
+        size=(x_np.shape[1], SP_PLANES)).astype(np.float32)
+    code = (x_np @ planes > 0) @ (1 << np.arange(SP_PLANES))
+    out = []
+    for c in np.unique(code):
+        ids = np.flatnonzero(code == c)
+        i, j = np.triu_indices(len(ids), 1)
+        out.append(np.stack([ids[i], ids[j]], axis=1))
+    return np.concatenate(out)
+
+
+def phase_some_pairs(x, x_np, w) -> dict:
+    """Phase 16: ``PairwiseService(executor='fused').some_pairs`` on the main
+    path's table: ``fused_gather_gram`` once per bucket and nothing else,
+    each bucket against its plain version, the matrix against x·xᵀ on the
+    required pairs and exactly 0 elsewhere."""
+    pairs = required_pairs(x_np)
+    t0 = time.perf_counter()
+    schema = plan_some_pairs(w, Q, pairs)
+    t_plan = time.perf_counter() - t0
+    plan = _plan_for(schema, pad_reducers_to=1, pad_slots_to=1)
+    arrays = bucket_arrays(plan, x.device)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for b, (idx, mask, _) in zip(plan.buckets, arrays):
+        errs["float32"] = max(errs["float32"], check_kernel(
+            x, idx, mask, FP32, f"some-pairs bucket {b.width} fp32"))
+        errs["bfloat16"] = max(errs["bfloat16"], check_kernel(
+            x.bfloat16(), idx, mask, BF16, f"some-pairs bucket {b.width} "
+            "bf16"))
+    svc = PairwiseService(q=Q, executor="fused")
+    _build.reset_launch_counts()
+    sims, info = svc.some_pairs(x_np, pairs, w)
+    launched = counts()
+    assert launched == only(fused_gather_gram=len(plan.buckets)), launched
+    assert info["fused_path"] == "kernel", info["fused_path"]
+    assert (info["algorithm"], info["reducers"]) == \
+        (schema.algorithm, plan.num_reducers), info
+    with fgg.ieee_fp32():
+        g = x @ x.T
+    want = torch.zeros((M, M), dtype=torch.bool, device=x.device)
+    p = torch.from_numpy(pairs).to(x.device)
+    want[p[:, 0], p[:, 1]] = True
+    want[p[:, 1], p[:, 0]] = True
+    assert sims.shape == (M, M) and bool(torch.isfinite(sims).all())
+    torch.testing.assert_close(sims[want], g[want], **FP32)
+    off = float(sims[~want].abs().max())
+    assert off == 0.0, off
+    oracle_err = max_err(sims[want], g[want])
+    del g, want, sims
+    k_ms = sum(time_cuda(lambda: fgg.fused_gather_gram(x, i, mk), 10)
+               for i, mk, _ in arrays)
+    plain_ms = sum(time_cuda(lambda: fgg.fused_gather_gram_ref(x, i, mk),
+                             3, warmup=1) for i, mk, _ in arrays)
+    b_ms, b_by = bound(work_model(x, plan), PEAK_FP32_CUDA_CORES)
+    log(f"phase 16 some-pairs m={M} d={D}: {len(pairs)} of {M * (M - 1) // 2}"
+        f" pairs required; plan_some_pairs {schema.algorithm}, "
+        f"{plan.num_reducers} reducers, buckets "
+        f"{[(b.width, b.R) for b in plan.buckets]}, host plan {t_plan:.2f} s;"
+        f" service request wall {info['wall_s']:.3f} s (plans again); "
+        f"launches {launched}; kernel==plain max_abs_err fp32 "
+        f"{errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; required "
+        f"pairs==x·xᵀ max_abs_err {oracle_err:.3e}, others exactly 0; "
+        f"kernel fp32 {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return {"pairs": int(len(pairs)), "algorithm": schema.algorithm,
+            "reducers": plan.num_reducers,
+            "buckets": [(b.width, b.R) for b in plan.buckets],
+            "plan_s": t_plan, "request_wall_s": info["wall_s"],
+            "launches": launched, "errs": errs, "oracle_err": oracle_err,
+            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def zipf_size(rng) -> float:
+    """One input size of the main path's profile (``bench_profile``)."""
+    return float(np.clip(rng.zipf(ZIPF_A) / 32.0, 0.01, 0.45 * Q))
+
+
+def check_live(sims, xt, active, what: str) -> float:
+    """The maintained matrix against x·xᵀ (TF32 off) with a zero diagonal
+    on the live rows; tombstoned rows and columns exactly 0."""
+    with fgg.ieee_fp32():
+        want = xt @ xt.T
+    want.fill_diagonal_(0.0)
+    dead = torch.from_numpy(~np.asarray(active, bool)).to(xt.device)
+    want[dead] = 0.0
+    want[:, dead] = 0.0
+    assert sims.shape == want.shape, (sims.shape, want.shape)
+    torch.testing.assert_close(sims, want, **FP32,
+                               msg=lambda m: f"{what}: {m}")
+    if bool(dead.any()):
+        assert float(sims[dead].abs().max()) == 0.0, what
+        assert float(sims[:, dead].abs().max()) == 0.0, what
+    return max_err(sims, want)
+
+
+def timed_planner(planner, ops, rec: dict) -> None:
+    """Wrap the planner's edit methods so each edit's delta and host
+    planning seconds land in ``rec``."""
+    for op in ops:
+        fn = getattr(planner, op)
+
+        def timed(*args, _fn=fn):
+            t0 = time.perf_counter()
+            rec["delta"] = _fn(*args)
+            rec["plan_s"] = time.perf_counter() - t0
+            return rec["delta"]
+        setattr(planner, op, timed)
+
+
+def executed(delta) -> bool:
+    """Whether a delta recomputes reducers (the patch runs its sub-plan)."""
+    return bool(len(delta.touched_inputs) and delta.sub_plan is not None
+                and len(delta.dirty_rows))
+
+
+def edit_stats(rows) -> dict:
+    out = {}
+    for key in ("wall_s", "plan_s", "patch_s"):
+        v = np.array([r[key] for r in rows])
+        out[key] = {"median": float(np.median(v)),
+                    "p99": float(np.percentile(v, 99)), "max": float(v.max())}
+    return out
+
+
+def delta_gram_check(table_np, delta) -> tuple:
+    """pairwise_gram against its plain version on the blocks the delta's
+    buckets gathered from the capacity-padded table, and both timed."""
+    xt = StreamingExecutor._at_capacity(torch.from_numpy(table_np).cuda())
+    blocks = [fgg.gather_rows(xt, torch.from_numpy(b.idx).cuda(),
+                              torch.from_numpy(b.mask).cuda())
+              for b in delta.sub_plan.buckets]
+    err = 0.0
+    for g in blocks:
+        got = pg.pairwise_gram_batched(g, g)
+        torch.cuda.synchronize()
+        want = pg.pairwise_gram_ref(g, g)
+        torch.testing.assert_close(got, want, **FP32)
+        err = max(err, max_err(got, want))
+    k_ms = time_cuda(lambda: [pg.pairwise_gram_batched(g, g)
+                              for g in blocks], 10)
+    plain_ms = time_cuda(lambda: [pg.pairwise_gram_ref(g, g)
+                                  for g in blocks], 3, warmup=1)
+    return err, k_ms, plain_ms
+
+
+def phase_stream_a2a(x_np, w) -> dict:
+    """Phase 17: the service's edit API on the main path's table with
+    ``use_kernel=True``: ``load_table`` cold-builds through
+    ``fused_gather_gram`` and warms every delta shape (``pairwise_gram``);
+    then 48 seeded edits, each executed delta one ``pairwise_gram`` launch
+    per bucket of its dirty sub-plan (and its blocks against the plain
+    version), the first edit building nothing and bringing no new table
+    signature, and the matrix checked every 8th edit and after the last."""
+    svc = PairwiseService(q=Q, executor="streaming", use_kernel=True)
+    _build.reset_launch_counts()
+    sims, info = svc.load_table(x_np, w, max_gap=STREAM_MAX_GAP,
+                                repack_gap=STREAM_REPACK_GAP, warmup=True)
+    load = counts()
+    load_s = info["wall_s"]
+    planner = svc._planner
+    plan = planner.plan()
+    assert load == only(fused_gather_gram=len(plan.buckets),
+                        pairwise_gram=info["warmed_shapes"]), load
+    x = torch.from_numpy(x_np).cuda()
+    cold_err = check_live(sims, x, planner.active, "phase 17 load_table")
+    kerr = 0.0
+    for b, (idx, mask, _) in zip(plan.buckets, bucket_arrays(plan, x.device)):
+        kerr = max(kerr, check_kernel(x, idx, mask, FP32,
+                                      f"phase 17 cold bucket {b.width}"))
+    del sims, x
+    log(f"phase 17 load_table m={M} d={D}: {info['algorithm']}, "
+        f"{info['reducers']} reducers; {info['warmed_shapes']} delta shapes "
+        f"warmed; launches {load}; {info['wall_s']:.2f} s (plan, cold "
+        f"build, warmup); cold==x·xᵀ max_abs_err {cold_err:.3e}, cold "
+        f"buckets kernel==plain {kerr:.3e}")
+    rec: dict = {}
+    timed_planner(planner, ("insert", "delete", "reweight"), rec)
+    rng = np.random.default_rng(SEED + 11)
+    ops = ["add"] * STREAM_EDITS + ["remove"] * STREAM_EDITS \
+        + ["update"] * STREAM_EDITS
+    rng.shuffle(ops)
+    rows, pg_err, pg_ms, pg_plain_ms, pg_launches = [], 0.0, 0.0, 0.0, 0
+    check_errs = []
+    for k, op in enumerate(ops):
+        live = planner.active_ids()
+        before, builds, sigs = counts(), _build.build_counts(), \
+            table_signatures()
+        if op == "add":
+            sims, info = svc.add_input(
+                rng.normal(size=D).astype(np.float32), zipf_size(rng))
+        elif op == "remove":
+            sims, info = svc.remove_input(int(rng.choice(live)))
+        else:
+            sims, info = svc.update_weight(int(rng.choice(live)),
+                                           zipf_size(rng))
+        launched = {n: v - before[n] for n, v in counts().items()}
+        delta = rec["delta"]
+        if k == 0:
+            assert _build.build_counts() == builds, "first edit built"
+            assert table_signatures() == sigs, "first edit: new signature"
+        if delta.full_replan:
+            assert launched["fused_gather_gram"] > 0, launched
+        else:
+            n_pg = len(delta.sub_plan.buckets) if executed(delta) else 0
+            assert launched == only(pairwise_gram=n_pg), (op, launched)
+        pg_launches += launched["pairwise_gram"]
+        if executed(delta) and not delta.full_replan:
+            e, k_ms, p_ms = delta_gram_check(svc._table, delta)
+            pg_err, pg_ms, pg_plain_ms = max(pg_err, e), pg_ms + k_ms, \
+                pg_plain_ms + p_ms
+        rows.append({"op": op, "kind": info["kind"],
+                     "wall_s": info["wall_s"], "plan_s": rec["plan_s"],
+                     "patch_s": info["wall_s"] - rec["plan_s"],
+                     "dirty_reducers": info["dirty_reducers"],
+                     "recompute_fraction": info["recompute_fraction"],
+                     "replan": info["replan"], "executed": executed(delta),
+                     "pairwise_gram_launches": launched["pairwise_gram"]})
+        if (k + 1) % STREAM_CHECK_EVERY == 0 or k == len(ops) - 1:
+            xt = torch.from_numpy(svc._table).cuda()
+            check_errs.append(check_live(sims, xt, planner.active,
+                                         f"phase 17 edit {k}"))
+            del xt
+        del sims
+    # one more insert, under the profiler: the device's share of an edit
+    prof = profile_request(
+        lambda: svc.add_input(rng.normal(size=D).astype(np.float32),
+                              zipf_size(rng)), "phase 17 one more insert")
+    st = edit_stats(rows)
+    n_exec = sum(r["executed"] for r in rows)
+    log(f"phase 17 {len(rows)} edits ({STREAM_EDITS} each of add / remove / "
+        f"update): wall median {st['wall_s']['median'] * 1e3:.2f} ms, p99 "
+        f"{st['wall_s']['p99'] * 1e3:.2f} ms; planner median "
+        f"{st['plan_s']['median'] * 1e3:.2f} ms, p99 "
+        f"{st['plan_s']['p99'] * 1e3:.2f} ms; patch (table upload + device, "
+        f"synchronized) median {st['patch_s']['median'] * 1e3:.2f} ms, p99 "
+        f"{st['patch_s']['p99'] * 1e3:.2f} ms; dirty reducers median "
+        f"{np.median([r['dirty_reducers'] for r in rows]):.0f} max "
+        f"{max(r['dirty_reducers'] for r in rows)}; recompute fraction "
+        f"median {np.median([r['recompute_fraction'] for r in rows]):.2e} "
+        f"max {max(r['recompute_fraction'] for r in rows):.2e}; replans "
+        f"{sum(r['replan'] for r in rows)}; {n_exec} deltas executed, "
+        f"pairwise_gram launches {pg_launches} (kernel==plain max_abs_err "
+        f"{pg_err:.3e}; kernel {pg_ms:.4f} ms, plain {pg_plain_ms:.4f} ms "
+        f"over all of them); matrix==x·xᵀ at {len(check_errs)} checks, max "
+        f"abs err {max(check_errs):.3e}; first edit: no nvcc build, no new "
+        f"table signature")
+    return {"load": {"wall_s": load_s, "launches": load,
+                     "cold_err": cold_err, "kernel_err": kerr,
+                     "reducers": plan.num_reducers,
+                     "buckets": len(plan.buckets)},
+            "edits": rows, "stats": st, "pairwise_gram": {
+                "launches": pg_launches, "max_abs_err": pg_err,
+                "ms": pg_ms, "plain_ms": pg_plain_ms,
+                "executed_deltas": n_exec},
+            "check_errs": check_errs, "profile_insert": prof}
+
+
+def phase_stream_x2y(skew: dict) -> dict:
+    """Phase 18: ``StreamingExecutor.run_x2y`` on an
+    ``IncrementalX2YPlanner`` over the skew profile (8192 x 512): the cold
+    build launches ``fused_gather_gram_rect`` once per rect bucket (each
+    bucket against its plain version), then ``warm_delta_shapes_x2y`` and
+    16 seeded edits, each checked against x·yᵀ on the live rows with
+    tombstones exactly 0.  The X2Y delta reducer is a torch product in the
+    reference too, so deltas launch no hand-written kernel."""
+    t0 = time.perf_counter()
+    inc = IncrementalX2YPlanner(Q, wx=skew["wx"], wy=skew["wy"])
+    t_plan = time.perf_counter() - t0
+    plan = inc.plan()
+    X, Y = skew["x"], skew["y"]
+    errs = check_rect_buckets(X, Y, plan, "phase 18 stream x2y")
+    ex = make_executor("streaming")
+    fn = _block_fn_x2y("dot")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sims = ex.run_x2y((X, Y), plan, fn, (MX, MY))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    cold = counts()
+    assert cold == only(fused_gather_gram_rect=len(plan.buckets)), cold
+    torch.testing.assert_close(sims, oracle(X, Y, "dot"), **FP32)
+    t0 = time.perf_counter()
+    warmed = ex.warm_delta_shapes_x2y((X, Y), inc.delta_shapes(), fn)
+    t_warm = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 13)
+    ops = ["insert_x", "insert_y", "delete_x", "delete_y"] * X2Y_STREAM_EDITS
+    rng.shuffle(ops)
+    rows, errs_live = [], []
+    for op in ops:
+        before = counts()
+        if op == "insert_x":
+            X = torch.cat([X, torch.from_numpy(rng.normal(size=(1, D))
+                                               .astype(np.float32)).cuda()])
+            args = (float(rng.uniform(0.01, 0.1)),)
+        elif op == "insert_y":
+            Y = torch.cat([Y, torch.from_numpy(rng.normal(size=(1, D))
+                                               .astype(np.float32)).cuda()])
+            args = (float(rng.uniform(0.2, 0.45)),)
+        else:
+            live = inc.active_x_ids() if op == "delete_x" \
+                else inc.active_y_ids()
+            args = (int(rng.choice(live)),)
+        t0 = time.perf_counter()
+        delta = getattr(inc, op)(*args)
+        t1 = time.perf_counter()
+        sims = ex.apply_delta_x2y((X, Y), delta, fn, (X.shape[0],
+                                                      Y.shape[0]),
+                                  plan_provider=inc.plan)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = {n: v - before[n] for n, v in counts().items()}
+        if not delta.full_replan:
+            assert launched == only(), (op, launched)
+        ax = torch.zeros(X.shape[0], dtype=torch.bool, device=X.device)
+        ay = torch.zeros(Y.shape[0], dtype=torch.bool, device=X.device)
+        ax[torch.from_numpy(inc.active_x_ids()).cuda()] = True
+        ay[torch.from_numpy(inc.active_y_ids()).cuda()] = True
+        want = oracle(X, Y, "dot") * (ax[:, None] & ay[None, :])
+        torch.testing.assert_close(sims, want, **FP32,
+                                   msg=lambda m: f"phase 18 {op}: {m}")
+        dead = float(sims[~ax].abs().sum() + sims[:, ~ay].abs().sum())
+        assert dead == 0.0, (op, dead)
+        errs_live.append(max_err(sims, want))
+        rows.append({"op": op, "plan_s": t1 - t0, "patch_s": t2 - t1,
+                     "wall_s": t2 - t0,
+                     "dirty_reducers": int(len(delta.dirty_rows)),
+                     "recompute_fraction": float(delta.recompute_fraction),
+                     "full_replan": bool(delta.full_replan)})
+        del sims, want
+    st = edit_stats(rows)
+    log(f"phase 18 stream X2Y {MX}x{MY} d={D}: IncrementalX2YPlanner "
+        f"{plan.num_reducers} reducers, {len(plan.buckets)} rect buckets, "
+        f"host plan {t_plan:.2f} s; cold run_x2y {t_cold:.3f} s, launches "
+        f"{cold}, kernel==plain max_abs_err fp32 {errs['float32']:.3e} bf16 "
+        f"{errs['bfloat16']:.3e}; {warmed} delta shapes warmed in "
+        f"{t_warm:.2f} s; {len(rows)} edits: wall median "
+        f"{st['wall_s']['median'] * 1e3:.2f} ms p99 "
+        f"{st['wall_s']['p99'] * 1e3:.2f} ms (planner median "
+        f"{st['plan_s']['median'] * 1e3:.2f} ms, patch median "
+        f"{st['patch_s']['median'] * 1e3:.2f} ms); dirty reducers median "
+        f"{np.median([r['dirty_reducers'] for r in rows]):.0f}; "
+        f"matrix==x·yᵀ after every edit, max_abs_err {max(errs_live):.3e}, "
+        f"tombstones exactly 0")
+    return {"plan_s": t_plan, "cold_s": t_cold, "warm_s": t_warm,
+            "warmed_shapes": warmed, "reducers": plan.num_reducers,
+            "buckets": len(plan.buckets), "launches": cold, "errs": errs,
+            "edits": rows, "stats": st, "live_errs": errs_live}
+
+
 # ------------------------------------------------------------ LM serving
 
 def lm_config():
@@ -1449,6 +1844,9 @@ def main() -> int:
     blocks = phase_blocks()
     pgram = phase_pairwise_gram(x, schema, plan)
     timing_new = phase_timing_new(skew, bal, blocks, x, plan)
+    some = phase_some_pairs(x, x_np, w)
+    stream = phase_stream_a2a(x_np, w)
+    stream_x2y = phase_stream_x2y(skew)
     free_cuda()
     lm = {"fp32": phase_lm_fp32(), "bf16": phase_lm_bf16(),
           "long": phase_lm_long(), "decode": phase_lm_decode()}
@@ -1480,6 +1878,14 @@ def main() -> int:
         "bf16_ms": tot["kernel_bf16"],
         "ratio_to_bmm": tot["kernel_fp32"] / tot["bmm"],
         "buckets": fgg_buckets(timing, timing_new),
+        "paths": {
+            "some_pairs": {k: some[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "launches": some["launches"]["fused_gather_gram"],
+                "max_abs_err": some["errs"]["float32"]},
+            "stream_a2a_cold": {
+                "launches": stream["load"]["launches"]["fused_gather_gram"],
+                "max_abs_err": stream["load"]["kernel_err"]}},
         "ptxas": build_s["ptxas"]["fused_gather_gram"],
     }]
     rect_paths = {}
@@ -1507,7 +1913,10 @@ def main() -> int:
         log(f"rect kernel on {name}: {launches['fused_gather_gram_rect']} "
             f"launches, {t['kernel_fp32']:.4f} ms fp32 vs bound "
             f"{b_ms:.4f} ms ({b_by}), share {b_ms / t['kernel_fp32']:.3f}")
-    rect_errs = [x2y_skew["errs"], x2y_bal["errs"]] + [
+    rect_paths["stream_x2y_cold"] = {
+        "launches": stream_x2y["launches"]["fused_gather_gram_rect"],
+        "max_abs_err": stream_x2y["errs"]["float32"]}
+    rect_errs = [x2y_skew["errs"], x2y_bal["errs"], stream_x2y["errs"]] + [
         r["kernel_errs"] for r in blocks["blocks"]]
     main_rect = rect_paths["x2y_skew"]
     kernels.append({
@@ -1551,6 +1960,12 @@ def main() -> int:
                                        "bmm_ms", "ratio_to_bmm",
                                        "bound_ms", "bound_share")}
                     for r in timing_new["pairwise_gram"]["buckets"]],
+        "paths": {"stream_a2a_deltas": {
+            "launches": stream["pairwise_gram"]["launches"],
+            "max_abs_err": stream["pairwise_gram"]["max_abs_err"],
+            "ms": stream["pairwise_gram"]["ms"],
+            "plain_ms": stream["pairwise_gram"]["plain_ms"],
+            "warmup_launches": stream["load"]["launches"]["pairwise_gram"]}},
         "ptxas": build_s["ptxas"]["pairwise_gram"],
     })
     kernels += lm_kernel_records(lm)
@@ -1572,7 +1987,9 @@ def main() -> int:
                          for k, c in (("skew", skew), ("balanced", bal))},
             "x2y_skew": x2y_skew, "x2y_serving": x2y_serving,
             "skew_join": join, "x2y_balanced": x2y_bal, "blocks": blocks,
-            "pairwise_gram": pgram, "timing_new": timing_new, "lm": lm,
+            "pairwise_gram": pgram, "timing_new": timing_new,
+            "some_pairs": some, "stream_a2a": stream,
+            "stream_x2y": stream_x2y, "lm": lm,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

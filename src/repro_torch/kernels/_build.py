@@ -8,8 +8,9 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into
 newer than it, so a fresh checkout builds from its own sources alone.
 :func:`launch` raises on a refused launch and counts the successful ones
 per library (:func:`launch_counts`), so a run can show which kernels it
-went through.  Nothing here runs at import: the CPU tests import every
-module on machines without ``nvcc``.
+went through; :func:`build_counts` counts the ``nvcc`` runs per library,
+so a run can show that a step built nothing.  Nothing here runs at
+import: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "build_all", "load",
-           "build_log", "launch", "launch_counts", "reset_launch_counts"]
+           "build_log", "build_counts", "launch", "launch_counts",
+           "reset_launch_counts"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict = {}
 _LOGS: dict = {}
 _LAUNCHES: dict = {}
+_BUILDS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -68,6 +71,7 @@ def build(name: str, *, force: bool = False) -> Path:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     _LOGS[name] = proc.stdout + proc.stderr
+    _BUILDS[name] = _BUILDS.get(name, 0) + 1
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {src}:\n{_LOGS[name]}")
@@ -101,6 +105,12 @@ def build_log(name: str) -> str:
     """The compiler output of this process's last build of ``name`` ("" if
     the library was already up to date)."""
     return _LOGS.get(name, "")
+
+
+def build_counts() -> dict:
+    """``nvcc`` runs per library in this process (up-to-date libraries
+    are not rebuilt, so a warm process shows none)."""
+    return dict(_BUILDS)
 
 
 def launch(name: str, argtypes: list, args: tuple, what: str = "") -> None:

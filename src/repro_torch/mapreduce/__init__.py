@@ -7,9 +7,10 @@ into a :class:`ReducerPlan` (``build_x2y_plan`` a rectangular X2Y one,
 ``run_reducers`` / ``run_reducers_bucketed`` and their ``_x2y`` twins
 execute a generic reducer over it; the executor registry (``dense``,
 ``bucketed``, ``fused``) is the single dispatch point of
-``pairwise_similarity``, ``x2y_similarity``, ``pairwise_similarity_block``
-and ``skew_join``.  Not ported yet: ``some_pairs_similarity``, the
-``sharded`` / ``coded`` / ``streaming`` executors and meshes.
+``pairwise_similarity``, ``some_pairs_similarity``, ``x2y_similarity``,
+``pairwise_similarity_block`` and ``skew_join``; ``get_executor("streaming")``
+registers the streaming executor of ``repro_torch.stream`` on first lookup.
+Not ported yet: the ``sharded`` / ``coded`` executors and meshes.
 """
 
 from .allpairs import (
@@ -20,9 +21,11 @@ from .allpairs import (
     block_similarity_x2y,
     pairwise_similarity,
     pairwise_similarity_block,
+    some_pairs_similarity,
     x2y_similarity,
 )
 from .engine import (
+    FUSED_STATS,
     ReducerBucket,
     ReducerPlan,
     SparsePlan,
@@ -33,12 +36,17 @@ from .engine import (
     build_x2y_plan,
     build_x2y_plan_arrays,
     configure_block_cache,
+    configure_jit_cache,
+    fused_stats,
     jit_cache_stats,
     plan_from_arrays,
+    reset_fused_stats,
     run_reducers,
     run_reducers_bucketed,
+    run_reducers_fused,
     run_reducers_x2y,
     run_reducers_x2y_bucketed,
+    table_signatures,
 )
 from .executors import (
     BucketedExecutor,
@@ -57,11 +65,14 @@ __all__ = [
     "build_sparse_plan", "block_subplan", "build_x2y_plan",
     "build_x2y_plan_arrays", "plan_from_arrays",
     "run_reducers", "run_reducers_bucketed", "run_reducers_x2y",
-    "run_reducers_x2y_bucketed", "jit_cache_stats",
+    "run_reducers_x2y_bucketed", "run_reducers_fused", "jit_cache_stats",
+    "configure_jit_cache", "table_signatures", "FUSED_STATS",
+    "fused_stats", "reset_fused_stats",
     "block_cache_stats", "configure_block_cache",
     "Executor", "DenseExecutor", "BucketedExecutor", "FusedExecutor",
     "register_executor", "get_executor", "make_executor", "list_executors",
-    "pairwise_similarity", "pairwise_similarity_block", "x2y_similarity",
+    "pairwise_similarity", "pairwise_similarity_block",
+    "some_pairs_similarity", "x2y_similarity",
     "assemble_pair_matrix", "assemble_pair_matrix_bucketed",
     "assemble_x2y_matrix_bucketed", "block_similarity",
     "block_similarity_x2y", "skew_join", "join",

@@ -15,19 +15,25 @@ reducers compute the pairwise block; results land in the output matrix:
 * ``pairwise_similarity_block`` — one ``[i0:i1) x [j0:j1)`` block of the
   all-pairs matrix of a hierarchical schema, through ``run_block``, without
   anything O(m^2) on the host or the device.
+* ``some_pairs_similarity`` — the (m, m) matrix of an explicit pair set
+  through a some-pairs schema (``plan_some_pairs``), masked to the
+  required pairs.
 
-Not ported yet: ``some_pairs_similarity``.
+The streaming executor (``repro_torch.stream``) patches a maintained matrix
+with the same max-scatter (``_scatter_blocks``, ``_scatter_blocks_x2y``)
+and finish (``_finish_pair_matrix``, ``_finish_x2y_matrix``) as assembly.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import plan_a2a, plan_a2a_hierarchical, plan_x2y
+from repro_torch.core import (plan_a2a, plan_a2a_hierarchical,
+                              plan_some_pairs, plan_x2y)
 from repro_torch.core.schema import MappingSchema
 from repro_torch.kernels.pairwise.ops import pairwise_kernel
 from repro_torch.obs import span as _obs_span
@@ -39,6 +45,7 @@ from .executors import get_executor
 __all__ = [
     "pairwise_similarity",
     "pairwise_similarity_block",
+    "some_pairs_similarity",
     "x2y_similarity",
     "assemble_pair_matrix",
     "assemble_pair_matrix_bucketed",
@@ -361,6 +368,53 @@ def pairwise_similarity_block(
     return block, sparse, schema
 
 
+def some_pairs_similarity(
+    x,                                  # (m, d) tensor or array
+    pairs: Sequence[tuple[int, int]],   # required pairs (i, j)
+    *,
+    q: float,
+    weights=None,                       # per-input sizes; default: uniform
+    schema: Optional[MappingSchema] = None,
+    metric: str = "dot",
+    mesh=None,
+    use_kernel: bool = False,
+    pad_slots_to: int = 1,
+    executor: str = "bucketed",
+    device=None,
+):
+    """Similarity for an explicit pair set through a some-pairs schema.
+
+    Unlike :func:`pairwise_similarity`, only inputs incident to a required
+    pair are shipped to reducers (the planner's sparse strategies leave the
+    rest unplaced), and the returned matrix is masked to the required pairs
+    (symmetric) on the device.  ``executor='fused'`` serves the some-pairs
+    workload on the same fused gather+Gram path as A2A.  ``device`` as in
+    :func:`pairwise_similarity`.  Returns (sims (m, m), plan, schema)."""
+    x = as_table(x, device)
+    m = x.shape[0]
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded execution over a mesh is not ported yet")
+    with _obs_span("plan", workload="some_pairs", m=m):
+        if schema is None:
+            w = (np.full(m, 1.0) if weights is None
+                 else np.asarray(weights, float))
+            schema = plan_some_pairs(w, q, pairs)
+        plan = _plan_for(schema, pad_reducers_to=1,
+                         pad_slots_to=pad_slots_to)
+    fn = _block_fn(metric, use_kernel)
+    with _obs_span("execute", workload="some_pairs",
+                   reducers=plan.num_reducers):
+        sims = _run_and_assemble(x, plan, fn, m, mesh, executor,
+                                 use_kernel=use_kernel)
+    p = torch.as_tensor(np.asarray(list(pairs), dtype=np.int64)
+                        .reshape(-1, 2), device=sims.device)
+    want = torch.zeros((m, m), dtype=torch.bool, device=sims.device)
+    want[p[:, 0], p[:, 1]] = True
+    want[p[:, 1], p[:, 0]] = True
+    return torch.where(want, sims, 0.0), plan, schema
+
+
 def x2y_similarity(
     x,                                  # (mx, d) X-side feature rows
     y,                                  # (my, d) Y-side feature rows
@@ -424,9 +478,38 @@ def _scatter_blocks(out: torch.Tensor, blocks: torch.Tensor,
 
 
 def _finish_pair_matrix(out: torch.Tensor) -> torch.Tensor:
-    """Uncovered cells -> 0 and a zero diagonal (no self-pairs in A2A)."""
+    """Uncovered cells -> 0 and the diagonal multiplied by 0 (no self-pairs
+    in A2A), as the reference multiplies by ``1 - eye``: a non-finite
+    self-product stays NaN there."""
     out = torch.where(torch.isneginf(out), 0.0, out)
-    return out.fill_diagonal_(0.0)
+    out.diagonal().mul_(0.0)
+    return out
+
+
+def _scatter_blocks_x2y(out: torch.Tensor, blocks: torch.Tensor,
+                        xidx: torch.Tensor, xmask: torch.Tensor,
+                        yidx: torch.Tensor,
+                        ymask: torch.Tensor) -> torch.Tensor:
+    """max-scatter (R, Lx, Ly) cross blocks into the running (mx, my)
+    matrix (initialized to -inf), in place; duplicates agree, so max is
+    deterministic.  The streaming patch relies on the max-combine (clean
+    cells keep their value after -inf invalidation).  A masked slot's index
+    is never read: its -inf entries land on cell (0, 0), a real pair that
+    amax leaves as it was."""
+    my = out.shape[1]
+    xidx = torch.where(xmask, xidx, 0).long()
+    yidx = torch.where(ymask, yidx, 0).long()
+    flat = (xidx[:, :, None] * my + yidx[:, None, :]).reshape(-1)
+    valid = xmask[:, :, None] & ymask[:, None, :]
+    vals = torch.where(valid, blocks, float("-inf")).reshape(-1)
+    out.view(-1).scatter_reduce_(0, flat, vals.to(out.dtype), reduce="amax")
+    return out
+
+
+def _finish_x2y_matrix(out: torch.Tensor) -> torch.Tensor:
+    """Uncovered / invalidated cells -> 0 (no diagonal to zero: an (x, y)
+    pair is never a self-pair)."""
+    return torch.where(torch.isneginf(out), 0.0, out)
 
 
 def assemble_pair_matrix(blocks: torch.Tensor, plan: ReducerPlan, m: int):

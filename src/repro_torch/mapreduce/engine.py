@@ -76,6 +76,12 @@ __all__ = [
     "run_reducers_x2y",
     "run_reducers_x2y_bucketed",
     "jit_cache_stats",
+    "configure_jit_cache",
+    "table_signatures",
+    "FUSED_STATS",
+    "fused_stats",
+    "reset_fused_stats",
+    "run_reducers_fused",
 ]
 
 
@@ -613,6 +619,24 @@ _JIT_SHAPES: dict = {}                # key -> table signatures seen
 _PLAN_TOKENS = itertools.count(1)
 
 
+_TABLE_SIGNATURES: set = set()      # every table signature ever served
+
+
+def configure_jit_cache(max_size: Optional[int] = None) -> int:
+    """Set the upload LRU cap; with no argument, re-read
+    ``REPRO_JIT_CACHE_SIZE`` from the environment (default 64).  Evicts
+    oldest entries immediately if the cache exceeds the new cap.  Returns
+    the active cap."""
+    global _JIT_CACHE_MAX
+    if max_size is None:
+        max_size = _env_cache_size()
+    assert max_size >= 1, max_size
+    _JIT_CACHE_MAX = max_size
+    while len(_JIT_CACHE) > _JIT_CACHE_MAX:
+        _evict_oldest()
+    return _JIT_CACHE_MAX
+
+
 def _evict_oldest():
     key, _ = _JIT_CACHE.popitem(last=False)
     _JIT_CACHE_HITS.pop(key, None)
@@ -627,6 +651,7 @@ def _record_shape(key, tables) -> None:
     an entry has served before is a ``shape_hit``; a new one is a
     ``shape_miss``."""
     sig = tuple((tuple(t.shape), str(t.dtype)) for t in tables)
+    _TABLE_SIGNATURES.add((key[0], key[2]) + sig)
     seen = _JIT_SHAPES.setdefault(key, set())
     if sig in seen:
         _JIT_CACHE_STATS["shape_hits"] += 1
@@ -671,6 +696,14 @@ def jit_cache_stats() -> dict:
         per_key[label] = per_key.get(label, 0) + hits
     return {**_JIT_CACHE_STATS, "size": len(_JIT_CACHE),
             "max_size": _JIT_CACHE_MAX, "per_key": per_key}
+
+
+def table_signatures() -> frozenset:
+    """Every ``(kind, device, table shapes and dtypes)`` the upload cache
+    has served in this process.  Entries are keyed by plan, so a new plan
+    always misses the cache; a new *signature* is what a request brings
+    that no earlier one did (the counterpart of a new program shape)."""
+    return frozenset(_TABLE_SIGNATURES)
 
 
 # The block sub-plan LRU (``block_subplan``) lives per SparsePlan instance
@@ -955,3 +988,40 @@ def run_reducers_x2y_bucketed(
     for (b, out), arr in zip(per_bucket, arrays):
         acc[arr[4]] = _pad_to(out, probe.shape[1:])  # padding rows -> row R
     return acc[: plan.R]
+
+
+# ---------------------------------------------------------------------------
+# fused executor: module-level shims over the executor registry
+# ---------------------------------------------------------------------------
+# ``fused_stats()`` is the aggregate view: every ``FusedExecutor`` instance
+# publishes its increments into the obs registry's
+# ``executor.<key>{executor=fused}`` series, and this shim sums them.
+# ``FUSED_STATS`` is kept as the reference's legacy name only; no instance
+# writes to it.
+FUSED_STATS = {"calls": 0, "kernel": 0, "streamed": 0, "fallbacks": 0}
+
+_FUSED_KEYS = ("calls", "kernel", "streamed", "fallbacks")
+
+
+def fused_stats() -> dict:
+    """Aggregate fused dispatch counters across every ``FusedExecutor``
+    instance, read from the observability registry."""
+    return {k: int(_OBS_REGISTRY.counter_total(f"executor.{k}",
+                                               executor="fused"))
+            for k in _FUSED_KEYS}
+
+
+def reset_fused_stats() -> None:
+    """Zero the aggregate fused counters (all instances' published
+    series)."""
+    for k in _FUSED_KEYS:
+        _OBS_REGISTRY.reset_counters(f"executor.{k}", executor="fused")
+    for k in FUSED_STATS:
+        FUSED_STATS[k] = 0
+
+
+def run_reducers_fused(inputs, plan, reducer_fn, **kwargs):
+    """Fused shuffle execution: shim over ``get_executor("fused").run`` (see
+    :class:`repro_torch.mapreduce.executors.FusedExecutor`)."""
+    from .executors import get_executor
+    return get_executor("fused").run(inputs, plan, reducer_fn, **kwargs)

@@ -28,10 +28,14 @@ Registered executors:
                 gather through the inverse-shuffle source map.  Non-Gram
                 reducers fall back to bucketed, counted.
 
+``streaming`` — ``repro_torch.stream.StreamingExecutor``, registered on
+                its first lookup: cold builds on ``fused``, then the
+                maintained pair matrix patched per edit.
+
 On dense and bucketed, ``use_kernel=True`` reducers (``allpairs._block_fn``)
 compute each block with the ``pairwise_gram`` kernel, one batched launch
-per gather.  Not ported yet: ``sharded``, ``coded`` and ``streaming``, and
-``lower``; a ``mesh`` raises ``NotImplementedError``.
+per gather.  Not ported yet: ``sharded`` and ``coded``; a ``mesh`` raises
+``NotImplementedError``, and so does ``lower`` (see ``Executor.lower``).
 """
 
 from __future__ import annotations
@@ -151,6 +155,14 @@ class Executor:
         self._count("block_calls")
         return out
 
+    def lower(self, *args, **kwargs):
+        """The reference lowers an executor's program to XLA for its
+        dry-run and roofline analysis; eager PyTorch has no such lowering,
+        so this raises.  The port's analysis tooling reads byte models and
+        the card's profiler instead, and comes with its own slice."""
+        raise NotImplementedError(
+            f"{self.name}: there is no XLA lowering in the PyTorch port")
+
     def stats(self) -> dict:
         """Snapshot of this instance's dispatch counters."""
         return dict(self._stats)
@@ -245,10 +257,16 @@ def register_executor(executor: Executor) -> Executor:
 
 def get_executor(name) -> Executor:
     """Default registry instance by name; Executor instances pass through.
-    Unknown names raise ``ValueError``."""
+    ``"streaming"`` is registered on its first lookup.  Unknown names raise
+    ``ValueError``."""
     if isinstance(name, Executor):
         return name
     ex = _REGISTRY.get(name)
+    if ex is None and name == "streaming":
+        # the streaming package registers its executor on import; loaded
+        # lazily so the engine never pays for it unless it is used
+        import repro_torch.stream  # noqa: F401
+        ex = _REGISTRY.get(name)
     if ex is None:
         raise ValueError(
             f"unknown executor {name!r} (registered: {list_executors()})")

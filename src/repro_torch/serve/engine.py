@@ -1,13 +1,23 @@
-"""``PairwiseService``: the paper-workload serving facade, similarity path.
+"""``PairwiseService``: the paper-workload serving facade.
 
 Port of ``repro.serve.engine.PairwiseService``: all-pairs ``similarity``,
-rectangular ``x2y``, and block serving (``load_block_table`` / ``block``).
-Queries are planned through the registry planner (all-pairs plans memoized
-by weight profile in ``PLAN_CACHE``) and executed on a private executor
-instance, so dispatch telemetry is scoped to the service.  Every response
-carries the reference's ``info`` keys: plan provenance, plan-cache hit, the
-fused path taken (``"kernel"`` on the card), the upload-cache counters and
-the comm-ledger reconciliation.
+``some_pairs``, rectangular ``x2y``, block serving (``load_block_table`` /
+``block``) and a live table under edits (``load_table``, ``add_input``,
+``remove_input``, ``update_weight``, ``flush_replan``).  Queries are
+planned through the registry planner (all-pairs plans memoized by weight
+profile in ``PLAN_CACHE``) and executed on a private executor instance, so
+dispatch telemetry is scoped to the service.  Every response carries the
+reference's ``info`` keys: plan provenance, plan-cache hit, the fused path
+taken (``"kernel"`` on the card), the upload-cache counters and the
+comm-ledger reconciliation.
+
+With ``executor='streaming'`` the service serves a *live* table:
+``load_table`` plans once through ``repro_torch.stream.IncrementalPlanner``
+and cold-builds the pair matrix on the card; each edit repairs the
+maintained schema locally and patches the matrix through the streaming
+executor, reporting recompute-fraction, dirty-reducer and gap-drift
+telemetry.  The live table is kept on the host, as in the reference, and
+uploaded with each edit.
 
 ``BatchedServer`` is wave-based greedy decoding on top of
 ``LMModel.decode_step`` (port of the reference's): a wave admits up to B
@@ -15,8 +25,6 @@ requests; all slots decode in lock-step sharing the cache write position
 (slot s's token at tick t lands at position t of its own cache lane), slots
 whose request finishes early idle until the wave drains, and the next wave
 starts with a fresh cache.  Steps run eagerly (the reference jits them).
-
-Not ported yet: ``some_pairs`` and the streaming edit API.
 """
 
 from __future__ import annotations
@@ -125,18 +133,20 @@ class BatchedServer:
 
 
 class PairwiseService:
-    """Serve all-pairs similarity through planned schemas.
+    """Serve all-pairs / some-pairs similarity through planned schemas.
 
     Each query brings its own input table (and optionally per-input
     sizes); the service plans a mapping schema — repeated weight profiles
     hit ``repro_torch.core.PLAN_CACHE`` and skip planning — and executes it
     on a private instance of a registry executor ("dense" / "bucketed" /
-    "fused") on ``device`` (``None`` means CUDA and raises without a card).
+    "fused" / "streaming") on ``device`` (``None`` means CUDA and raises
+    without a card).
     """
 
     def __init__(self, q: float, *, metric: str = "dot", mesh=None,
-                 executor: str = "bucketed", use_kernel: bool = False,
-                 tenant: str = "default", device=None):
+                 executor: str = "bucketed", max_buckets: int = 8,
+                 use_kernel: bool = False, tenant: str = "default",
+                 device=None):
         from repro_torch.mapreduce import make_executor
         if mesh is not None:
             raise NotImplementedError(
@@ -150,6 +160,7 @@ class PairwiseService:
         # a PRIVATE executor instance: dispatch counters are scoped to this
         # service
         self._executor = make_executor(executor)
+        self.max_buckets = max_buckets
         self.use_kernel = use_kernel
         self.stats = {
             "requests": 0,
@@ -160,9 +171,17 @@ class PairwiseService:
             "fused_kernel": 0,
             "fused_streamed": 0,
             "fused_fallbacks": 0,
+            "edits": 0,
+            "dirty_reducers": 0,
+            "edit_reducers_total": 0,
+            "stream_replans": 0,
+            "stream_repacks": 0,
+            "stream_swaps": 0,
             "block_requests": 0,
             "wall_s": 0.0,
         }
+        self._planner = None                     # streaming: live planner
+        self._table: Optional[np.ndarray] = None  # streaming: live rows
         self._block_table: Optional[torch.Tensor] = None  # block serving
         self._block_schema = None
         self._block_sparse = None
@@ -274,6 +293,23 @@ class PairwiseService:
         return sims, self._info(plan, time.perf_counter() - t0, snap,
                                 workload="pairs")
 
+    def some_pairs(self, x, pairs, weights=None):
+        """Similarity restricted to an explicit required-pair set.  Returns
+        (sims (m, m), info); the matrix is 0 off the required pairs."""
+        from repro_torch.mapreduce.allpairs import some_pairs_similarity
+        snap = self._snap()
+        t0 = time.perf_counter()
+        with _obs_span("request", workload="some_pairs",
+                       executor=self.executor, tenant=self.tenant):
+            sims, plan, _schema = some_pairs_similarity(
+                x, pairs, q=self.q, weights=weights, metric=self.metric,
+                executor=self._executor, use_kernel=self.use_kernel,
+                device=self.device)
+            if sims.is_cuda:
+                torch.cuda.synchronize(sims.device)
+        return sims, self._info(plan, time.perf_counter() - t0, snap,
+                                workload="some_pairs")
+
     def x2y(self, x, y, wx=None, wy=None):
         """Cross similarity of an X table against a Y table through the
         Section-10 rectangular (X2Y) schema.  Returns (sims (mx, my),
@@ -374,3 +410,171 @@ class PairwiseService:
             "block_calls": self._executor.stats().get("block_calls", 0),
             "wall_s": dt,
         }
+
+    # ------------------------------------------------------------- streaming
+    def _reducer_fn(self):
+        """The memoized reducer: the streaming executor matches its state
+        to the reducer by identity."""
+        from repro_torch.mapreduce.allpairs import _block_fn
+        return _block_fn(self.metric, self.use_kernel)
+
+    def _require_streaming(self):
+        from repro_torch.stream import StreamingExecutor
+        assert isinstance(self._executor, StreamingExecutor), (
+            f"live-table edits need executor='streaming' "
+            f"(this service runs {self.executor!r})")
+        return self._executor
+
+    def load_table(self, x, weights=None, *, replan_drift: float = 1.5,
+                   max_gap: Optional[float] = 2.0,
+                   repack_gap: Optional[float] = None,
+                   background: bool = False, warmup: bool = True):
+        """Adopt ``x`` as the live table (streaming executor only).
+
+        Plans the initial schema through ``repro_torch.stream.
+        IncrementalPlanner``, cold-builds the pair matrix on the fused
+        substrate, runs the bounded delta-shape set once (``warmup=True``:
+        the first edit then builds and loads nothing new), and returns
+        ``(sims, info)``.  Subsequent ``add_input`` / ``remove_input`` /
+        ``update_weight`` calls edit this table in place; ``max_gap`` /
+        ``repack_gap`` / ``background`` tune the planner's re-plan
+        ceiling, soft repack threshold, and double-buffered re-plan (see
+        ``repro_torch.stream.StreamPlannerBase``)."""
+        from repro_torch.stream import IncrementalPlanner
+        ex = self._require_streaming()
+        self._table = np.asarray(x, dtype=np.float32)
+        m = self._table.shape[0]
+        w = np.full(m, 1.0) if weights is None \
+            else np.asarray(weights, dtype=np.float64)
+        t0 = time.perf_counter()
+        self._planner = IncrementalPlanner(
+            self.q, w, replan_drift=replan_drift, max_gap=max_gap,
+            repack_gap=repack_gap, background=background,
+            max_buckets=self.max_buckets)
+        plan = self._planner.plan()
+        xt = torch.as_tensor(self._table, device=self.device)
+        with _obs_span("request", workload="load_table",
+                       executor=self.executor, tenant=self.tenant):
+            sims = ex.run_pairs(xt, plan, self._reducer_fn(), m,
+                                use_kernel=self.use_kernel,
+                                device=self.device)
+            if sims.is_cuda:
+                torch.cuda.synchronize(sims.device)
+        warmed = 0
+        if warmup:
+            warmed = ex.warm_delta_shapes(
+                xt, self._planner.delta_shapes(), self._reducer_fn(),
+                device=self.device)
+        dt = time.perf_counter() - t0
+        self.stats["requests"] += 1
+        self.stats["reducers"] += plan.num_reducers
+        self.stats["wall_s"] += dt
+        info = {
+            "executor": self.executor,
+            "algorithm": self._planner.algorithm,
+            "reducers": plan.num_reducers,
+            "comm_cost": self._planner.comm_cost,
+            "lower_bound": self._planner.lower_bound,
+            "optimality_gap": self._planner.optimality_gap,
+            "achievable_gap": self._planner.achievable_gap,
+            "warmed_shapes": warmed,
+            "wall_s": dt,
+        }
+        return sims, info
+
+    def flush_replan(self) -> bool:
+        """Block until any in-flight background re-plan lands (planning
+        state only — served pair values are plan-independent).  Returns
+        True if a fresh schema was adopted."""
+        assert self._planner is not None, "call load_table() first"
+        return self._planner.flush_replan()
+
+    def _edit(self, op: str, *args):
+        ex = self._require_streaming()
+        assert self._planner is not None, "call load_table() first"
+        before = dict(self._planner.stats)
+        ledger_seq = _LEDGER.seq
+        t0 = time.perf_counter()
+        with _obs_span("edit", kind=op, executor=self.executor,
+                       tenant=self.tenant):
+            delta = getattr(self._planner, op)(*args)
+            sims = ex.apply_delta(
+                self._table, delta, self._reducer_fn(),
+                self._table.shape[0], plan_provider=self._planner.plan,
+                use_kernel=self.use_kernel, device=self.device)
+            if sims.is_cuda:
+                torch.cuda.synchronize(sims.device)
+        dt = time.perf_counter() - t0
+        pstats = self._planner.stats
+        self.stats["edits"] += 1
+        self.stats["dirty_reducers"] += int(len(delta.dirty_rows))
+        self.stats["edit_reducers_total"] += int(delta.num_reducers)
+        self.stats["stream_replans"] += \
+            pstats["replans"] - before["replans"]
+        self.stats["stream_repacks"] += \
+            pstats["repacks"] - before["repacks"]
+        self.stats["stream_swaps"] += pstats["swaps"] - before["swaps"]
+        self.stats["wall_s"] += dt
+        info = {
+            "executor": self.executor,
+            "kind": delta.kind,
+            "input_id": int(delta.input_id),
+            "dirty_reducers": int(len(delta.dirty_rows)),
+            "num_reducers": int(delta.num_reducers),
+            "recompute_fraction": float(delta.recompute_fraction),
+            "full_replan": bool(delta.full_replan),
+            "replan": bool(delta.meta.get("replan", False)),
+            "replan_pending": bool(delta.meta.get("replan_pending",
+                                                  False)),
+            "swap": bool(delta.meta.get("swap", False)),
+            "repack": pstats["repacks"] > before["repacks"],
+            "comm_cost": float(delta.comm_cost),
+            "delta_comm_rows": float(delta.delta_comm_rows()),
+            "lower_bound": float(delta.lower_bound),
+            "optimality_gap": delta.optimality_gap,
+            "achievable_gap": float(self._planner.achievable_gap),
+            "gap_drift": float(delta.gap_drift),
+            "algorithm": self._planner.algorithm,
+            "wall_s": dt,
+        }
+        comm = self._comm_info({"ledger_seq": ledger_seq})
+        if comm is not None:
+            info["comm"] = comm
+        _OBS_REGISTRY.counter(
+            "serve.edits", executor=self.executor, kind=op,
+            tenant=self.tenant).inc()
+        _OBS_REGISTRY.histogram(
+            "serve.edit_seconds", executor=self.executor, kind=op,
+            tenant=self.tenant).observe(dt)
+        return sims, info
+
+    def add_input(self, row, weight: float = 1.0):
+        """Append one feature row to the live table.  Returns
+        ``(sims, info)``: the patched matrix (new input's row/column
+        filled) and the edit's delta telemetry."""
+        from repro_torch.core.schema import InfeasibleError
+        row = np.asarray(row, dtype=np.float32).reshape(1, -1)
+        assert self._table is not None, "call load_table() first"
+        assert row.shape[1] == self._table.shape[1], (
+            row.shape, self._table.shape)
+        self._table = np.concatenate([self._table, row])
+        try:
+            return self._edit("insert", float(weight))
+        except InfeasibleError:
+            # the planner rolled its insert back too — pop the row so the
+            # table and the maintained schema stay in lockstep (any other
+            # exception leaves the committed input in both)
+            self._table = self._table[:-1]
+            raise
+
+    def remove_input(self, i: int):
+        """Tombstone input ``i``: its row/column of the served matrix is
+        zeroed; no reducer recomputes (surviving pair values are
+        unchanged)."""
+        return self._edit("delete", int(i))
+
+    def update_weight(self, i: int, weight: float):
+        """Change input ``i``'s planning size.  Feature rows are untouched
+        so the matrix never changes — only the maintained schema (bin
+        moves, possibly a gap-drift re-plan) and its telemetry do."""
+        return self._edit("reweight", int(i), float(weight))

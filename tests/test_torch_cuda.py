@@ -622,6 +622,84 @@ def test_block_serving_on_the_card(cuda):
         torch.testing.assert_close(blk, want, **FP32)
 
 
+# ------------------------------------------- some-pairs and streaming paths
+def test_some_pairs_on_the_card_equals_the_cpu(cuda):
+    rng = np.random.default_rng(3)
+    m = 300
+    x = rng.normal(size=(m, 24)).astype(np.float32)
+    w = rng.uniform(0.02, 0.2, m)
+    sig = x @ rng.normal(size=(24, 3)).astype(np.float32) > 0
+    code = sig @ np.array([1, 2, 4])
+    pairs = [(i, j) for i in range(m) for j in range(i + 1, m)
+             if code[i] == code[j]]
+    svc = PairwiseService(q=1.0, executor="fused", metric="cosine")
+    before = _launches("fused_gather_gram")
+    sims, info = svc.some_pairs(x, pairs, w)
+    assert info["fused_path"] == "kernel"
+    assert _launches("fused_gather_gram") - before == \
+        len(info["bucket_widths"])
+    cpu = PairwiseService(q=1.0, executor="fused", metric="cosine",
+                          device="cpu").some_pairs(x, pairs, w)[0]
+    torch.testing.assert_close(sims.cpu(), cpu, **FP32)
+
+
+def _stream_edits(svc, rng, d, n=8):
+    out = []
+    for i in range(n):
+        act = svc._planner.active_ids()
+        if i % 3 == 0:
+            out.append(svc.add_input(rng.normal(size=d), 0.1))
+        elif i % 3 == 1:
+            out.append(svc.remove_input(int(act[i])))
+        else:
+            out.append(svc.update_weight(int(act[i]), 0.15))
+    return out
+
+
+def test_streaming_edits_on_the_card_equal_the_cpu(cuda):
+    """The same edit sequence with ``use_kernel=True`` on the card and on
+    the CPU: every patched matrix equal; the cold build launches
+    ``fused_gather_gram``, executed deltas ``pairwise_gram``."""
+    rng = np.random.default_rng(0)
+    m, d = 96, 16
+    w = np.clip(rng.zipf(1.6, m) / 32.0, 0.01, 0.45)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = PairwiseService(1.0, executor="streaming", use_kernel=True,
+                              device=dev)
+        before = dict(_build.launch_counts())
+        sims, _ = svc.load_table(x, w, warmup=False)
+        if dev == "cuda":
+            assert _build.launch_counts().get("fused_gather_gram", 0) > \
+                before.get("fused_gather_gram", 0)
+        before = _launches("pairwise_gram")
+        runs[dev] = [sims] + [s for s, _ in _stream_edits(
+            svc, np.random.default_rng(1), d)]
+        if dev == "cuda":
+            assert _launches("pairwise_gram") > before
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, **FP32)
+
+
+def test_warmed_first_edit_builds_no_library(cuda):
+    rng = np.random.default_rng(0)
+    m, d = 64, 16
+    w = np.clip(rng.zipf(1.6, m) / 32.0, 0.01, 0.45)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    svc = PairwiseService(1.0, executor="streaming", use_kernel=True)
+    _build.reset_launch_counts()
+    _, info = svc.load_table(x, w, warmup=True)
+    assert info["warmed_shapes"] > 0
+    assert _launches("pairwise_gram") >= info["warmed_shapes"]
+    builds, sigs = _build.build_counts(), port_mr.table_signatures()
+    _, info = svc.add_input(rng.normal(size=d), 0.2)
+    assert info["dirty_reducers"] >= 1
+    assert _build.build_counts() == builds
+    assert port_mr.table_signatures() == sigs
+
+
 # ------------------------------------------------------ LM prefill kernels
 
 ATTN = dict(rtol=2e-4, atol=2e-4)

@@ -43,7 +43,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "kernels.flash.ref", "kernels.ssd.ssd", "kernels.ssd.ops",
                 "kernels.ssd.ref", "models", "models.configs_runtime",
                 "models.layers", "models.mamba", "models.moe",
-                "models.blocks", "models.lm", "serve.engine"):
+                "models.blocks", "models.lm", "serve.engine", "stream",
+                "stream.base", "stream.delta", "stream.executor",
+                "stream.incremental", "stream.x2y"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"

@@ -218,7 +218,10 @@ def test_use_kernel_on_oracles_is_not_ported_yet(executor):
 
 
 def test_registry():
-    assert port_mr.list_executors() == ["bucketed", "dense", "fused"]
+    # "streaming" registers itself on its first lookup, which another test
+    # in the same process may already have made
+    assert set(port_mr.list_executors()) - {"streaming"} == \
+        {"bucketed", "dense", "fused"}
     with pytest.raises(ValueError):
         port_mr.get_executor("sharded")
     a, b = port_mr.make_executor("fused"), port_mr.make_executor("fused")
