@@ -37,6 +37,20 @@ just before it and read just after):
   ``fused_gather_gram_rect`` (cold build), then 16 seeded edits, whose
   deltas reach no hand-written kernel (their reducer is a torch product,
   as in the reference; phase 18);
+* sharded execution over an in-process NCCL group of one rank: A2A on the
+  main path's table through ``pairwise_similarity(executor='sharded',
+  mesh=group)`` and ``PairwiseService`` -> ``fused_gather_gram`` once per
+  stacked width group; X2Y on the skew profile -> ``fused_gather_gram_rect``
+  once per (wx, wy) group (phase 19);
+* sharded and coded execution on 4 gloo ranks spawned on the one card
+  (the collectives on host tensors, the kernels on the card): sharded A2A
+  -> ``fused_gather_gram`` on an m=2048 table of the main path's
+  profile, coded (r=2) A2A -> ``fused_gather_gram_rect`` (one table as
+  both sides) on an m=1024 one, sharded X2Y on the skew profile ->
+  ``fused_gather_gram_rect``;
+  every rank's matrices against this process's fused ones, the coded
+  ledger against the all-to-all's bytes, and no rank running nvcc
+  (phase 20);
 * LM serving on jamba-1.5-large-398b at its published widths with the
   depth cut to 3 layers (attention + dense FFN, Mamba + MoE, Mamba +
   dense; 12.37 B parameters made on the card from seed 0): the prefill ->
@@ -64,9 +78,12 @@ per bucket.  Phases 16-18 run after phase 11 and before the LM phases:
 they time the some-pairs kernel and every edit (planner and patch), hold
 every kernel launch against its plain version and every matrix against
 x·xᵀ / x·yᵀ, and check that the first edit after a warmed ``load_table``
-builds no library and brings no new table signature.  Flash is timed
-beside SDPA in the same call; flash and SSD with their ms per launch,
-share of bound and achieved TFLOP/s.
+builds no library and brings no new table signature.  Phases 19-20 follow
+them: kernel ms per stacked group of each rank's slice, host seconds of
+the partition, stacking and maps (``_coded_maps`` included), collective ms
+per rank, the coded path's local fraction and the balance factor.  Flash
+is timed beside SDPA in the same call; flash and SSD with their ms per
+launch, share of bound and achieved TFLOP/s.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device it exits 2 before printing any result.  The last two lines are the
 ``kernels`` JSON record and the device JSON record.
@@ -77,11 +94,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -91,6 +110,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import compat  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     plan_a2a,
@@ -117,11 +137,13 @@ from repro_torch.mapreduce.allpairs import (  # noqa: E402
     _plan_for,
     _x2y_plan_for,
 )
+from repro_torch.mapreduce import executors as port_ex  # noqa: E402
 from repro_torch.mapreduce.engine import (  # noqa: E402
     block_subplan,
     bucket_arrays,
     rect_bucket_arrays,
 )
+from repro_torch.obs import LEDGER, REGISTRY  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_scan_chunked  # noqa: E402
 from repro_torch.kernels.ssd.ssd import ssd_scan_heads  # noqa: E402
@@ -366,11 +388,42 @@ def phase_end_to_end(x, schema, plan) -> dict:
                                   executor="fused", device="cpu")[0]
         torch.testing.assert_close(res["fused"], res["dense"], **FP32)
         torch.testing.assert_close(res["bucketed"], res["dense"], **FP32)
-        torch.testing.assert_close(res["fused"].cpu(), cpu, **FP32)
+        try:
+            torch.testing.assert_close(res["fused"].cpu(), cpu, **FP32)
+        except AssertionError:
+            report_card_vs_cpu(res, cpu, xs, metric)
+            raise
         log(f"phase 4 dense==bucketed==fused m=512 d=64 {metric}: max_abs_err "
             f"fused-dense {max_err(res['fused'], res['dense']):.3e}, "
             f"card-cpu {max_err(res['fused'].cpu(), cpu):.3e}")
     return out
+
+
+def report_card_vs_cpu(res: dict, cpu, xs, metric: str, k: int = 8):
+    """Before phase 4's card-versus-CPU check raises: the worst entries'
+    (i, j), the card's fused value, the CPU's, each card executor's, and
+    a float64 oracle of the same metric on the same rows, so a mismatch
+    names which side strayed."""
+    diff = (res["fused"].cpu() - cpu).abs()
+    worst = torch.topk(diff.reshape(-1), k).indices
+    x64 = torch.from_numpy(xs).double()
+    g = x64 @ x64.T
+    n2 = g.diagonal()
+    if metric == "l2":
+        g = n2[:, None] + n2[None, :] - 2.0 * g
+    elif metric == "cosine":
+        nrm = torch.sqrt(n2 + 1e-9)
+        g = g / (nrm[:, None] * nrm[None, :])
+    log(f"phase 4 card-vs-cpu MISMATCH, {metric}: "
+        f"{int((diff > FP32['atol'] + FP32['rtol'] * cpu.abs()).sum())} "
+        f"entries out of tolerance; worst {k}:")
+    m = cpu.shape[1]
+    for flat in worst.tolist():
+        i, j = divmod(flat, m)
+        log(f"  ({i}, {j}): card fused {float(res['fused'][i, j]):.8e} "
+            f"dense {float(res['dense'][i, j]):.8e} bucketed "
+            f"{float(res['bucketed'][i, j]):.8e} | cpu fused "
+            f"{float(cpu[i, j]):.8e} | float64 {float(g[i, j]):.8e}")
 
 
 def phase_serving() -> list:
@@ -1375,6 +1428,425 @@ def phase_stream_x2y(skew: dict) -> dict:
             "edits": rows, "stats": st, "live_errs": errs_live}
 
 
+# ---------------------------------------------------------------------------
+# sharded and coded execution over a process group
+# ---------------------------------------------------------------------------
+M_RANKS, RANKS = 2048, 4            # phase 20: table size, gloo ranks
+# phase 20's coded table: cut from M_RANKS to keep the script near 300 s,
+# since ``_coded_maps`` is a per-reducer Python loop (~15 s per rank at
+# m=2048, 171,405 reducers; 44,850 at m=1024)
+M_CODED = 1024
+GROUP_TIMEOUT_S = 120.0             # every collective, and each spawn
+
+
+class KernelSpy:
+    """Records each launch of the two Gram kernels the executors make (its
+    operands and output) to hold it against its plain version afterwards,
+    which launches nothing."""
+
+    PLAIN = {"fused_gather_gram": "fused_gather_gram_ref",
+             "fused_gather_gram_rect": "fused_gather_gram_rect_ref"}
+
+    def __enter__(self):
+        self.calls = []
+        self._orig = {n: getattr(port_ex, n) for n in self.PLAIN}
+        for name, fn in self._orig.items():
+            def spy(*args, _name=name, _fn=fn):
+                out = _fn(*args)
+                self.calls.append((_name, args, out))
+                return out
+            setattr(port_ex, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(port_ex, name, fn)
+
+    def check(self, what: str) -> dict:
+        """Every recorded launch against its plain version on the same
+        operands (fp32 tolerance): ``{kernel: {launches, max_abs_err}}``."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, args, got in self.calls:
+            want = getattr(fgg, self.PLAIN[name])(*args)
+            torch.testing.assert_close(got, want, **FP32,
+                                       msg=lambda m: f"{what} {name}: {m}")
+            rec = out.setdefault(name, {"launches": 0, "max_abs_err": 0.0})
+            rec["launches"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
+        self.calls = []
+        return out
+
+
+@contextlib.contextmanager
+def host_timers(names):
+    """Seconds spent in each named host function of the executors module
+    (the partition, the stacking, the source maps, the coded maps) while
+    the block runs."""
+    secs = dict.fromkeys(names, 0.0)
+    orig = {n: getattr(port_ex, n) for n in names}
+    for name, fn in orig.items():
+        def timed(*args, _name=name, _fn=fn, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                secs[_name] += time.perf_counter() - t0
+        setattr(port_ex, name, timed)
+    try:
+        yield secs
+    finally:
+        for name, fn in orig.items():
+            setattr(port_ex, name, fn)
+
+
+@contextlib.contextmanager
+def collective_timer():
+    """Host milliseconds inside the collectives.  Pending device work is
+    synchronized first and the ranks meet at a barrier, so neither the
+    kernels nor waiting for a slower rank is counted."""
+    import torch.distributed as dist
+    rec = {"ms": 0.0, "calls": 0}
+    orig = {n: getattr(compat, n) for n in ("all_gather", "all_to_all")}
+    for name, fn in orig.items():
+        def timed(t, group, _fn=fn):
+            torch.cuda.synchronize()
+            if group is not None:
+                dist.barrier(group)
+            t0 = time.perf_counter()
+            out = _fn(t, group)
+            torch.cuda.synchronize()
+            rec["ms"] += (time.perf_counter() - t0) * 1e3
+            rec["calls"] += 1
+            return out
+        setattr(compat, name, timed)
+    try:
+        yield rec
+    finally:
+        for name, fn in orig.items():
+            setattr(compat, name, fn)
+
+
+def nonzero(secs: dict) -> dict:
+    return {k: round(v, 3) for k, v in secs.items() if v}
+
+
+HOST_FNS = ("partition_plan", "_stacked_groups", "_sharded_srcmap",
+            "_stacked_rect_groups", "_sharded_rect_srcmap", "_coded_maps")
+
+
+def rank_slices(groups, rank: int, n: int, dev) -> list:
+    return [tuple(torch.as_tensor(a[rank], device=dev) for a in g[:n])
+            for g in groups]
+
+
+def group_times(x, y, groups, rank: int, rect: bool) -> dict:
+    """The kernel on ``rank``'s slice of every stacked group (the square
+    kernel, or the rect kernel on ``(x, y)``): CUDA-event ms per group,
+    their sum, the plain version's sum, and the bound of the slice's work
+    (valid products only: n (n + 1) d per square block, 2 nx ny d per
+    rect one; idx / mask read once, every fp32 output entry written once,
+    each table read once)."""
+    ms, plain_ms, ops, nbytes = [], 0.0, 0, 0
+    for g, s in zip(groups, rank_slices(groups, rank, 4 if rect else 2,
+                                        x.device)):
+        if rect:
+            ms.append(time_cuda(
+                lambda: fgg.fused_gather_gram_rect(x, y, *s), 10))
+            plain_ms += time_cuda(
+                lambda: fgg.fused_gather_gram_rect_ref(x, y, *s), 3,
+                warmup=1)
+            nx = g[1][rank].sum(axis=1).astype(np.int64)
+            ny = g[3][rank].sum(axis=1).astype(np.int64)
+            ops += 2 * x.shape[1] * int((nx * ny).sum())
+            Rw, wx, wy = g[0].shape[1], g[0].shape[2], g[2].shape[2]
+            nbytes += Rw * (wx + wy) * 5 + Rw * wx * wy * 4
+        else:
+            ms.append(time_cuda(lambda: fgg.fused_gather_gram(x, *s), 10))
+            plain_ms += time_cuda(
+                lambda: fgg.fused_gather_gram_ref(x, *s), 3, warmup=1)
+            n = g[1][rank].sum(axis=1).astype(np.int64)
+            ops += x.shape[1] * int((n * (n + 1)).sum())
+            Rw, wd = g[0].shape[1], g[0].shape[2]
+            nbytes += Rw * wd * 5 + Rw * wd * wd * 4
+    tables = (x,) if x is y else (x, y)
+    nbytes += sum(t.numel() * t.element_size() for t in tables)
+    b_ms, b_by = bound({"ops": ops, "bytes": nbytes}, PEAK_FP32_CUDA_CORES)
+    return {"group_ms": ms, "ms": sum(ms), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_sharded_one_rank(x, x_np, w, schema, skew) -> dict:
+    """Phase 19: an in-process NCCL group of one rank (rendezvous through a
+    file store in a temporary directory, so no port is opened).  Sharded
+    A2A on the main path's table through ``pairwise_similarity(mesh=
+    group)`` and then ``PairwiseService(executor='sharded', mesh=group)``
+    (which plans again), and sharded X2Y on the skew profile through
+    ``x2y_similarity(mesh=group)``: each matrix against the fused
+    executor's on the same inputs, each launch against its plain version,
+    one launch per stacked group and nothing else."""
+    import torch.distributed as dist
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            group = dist.group.WORLD
+            assert dist.get_backend(group) == "nccl"
+            for path in ("a2a", "x2y"):
+                out[path] = sharded_one_rank_path(path, group, x, schema,
+                                                  skew)
+            svc = PairwiseService(q=Q, executor="sharded", mesh=group)
+            fused = pairwise_similarity(x, q=Q, schema=schema,
+                                        executor="fused")[0]
+            _build.reset_launch_counts()
+            with KernelSpy() as spy:
+                sims, info = svc.similarity(x_np, w)
+            launched = counts()
+            spy.check("phase 19 service")
+            assert launched == only(fused_gather_gram=out["a2a"][
+                "launches"]), launched
+            assert info["sharded"]["num_shards"] == 1, info["sharded"]
+            assert info["comm"]["measured_over_predicted"] == 1.0
+            torch.testing.assert_close(sims, fused, **FP32)
+            out["service"] = {"wall_s": info["wall_s"],
+                              "sharded": info["sharded"],
+                              "vs_fused_max_abs_err": max_err(sims, fused)}
+            del sims, fused
+        finally:
+            dist.destroy_process_group()
+    for path in ("a2a", "x2y"):
+        rec = out[path]
+        log(f"phase 19 one-rank NCCL group, sharded {path}: launches "
+            f"{rec['launches']} (one per stacked group {rec['groups']}), "
+            f"kernel==plain max_abs_err {rec['max_abs_err']:.3e}, "
+            f"sharded==fused max_abs_err {rec['vs_fused_max_abs_err']:.3e};"
+            f" kernel ms per group {[round(v, 4) for v in rec['group_ms']]}"
+            f" (sum {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
+            f"{rec['bound_ms']:.4f} {rec['bound_by']}); host s "
+            f"{nonzero(rec['host_s'])}")
+    log(f"phase 19 PairwiseService(executor='sharded', mesh=group) request "
+        f"(plans again): wall {out['service']['wall_s']:.3f} s, info "
+        f"sharded {out['service']['sharded']}, ==fused max_abs_err "
+        f"{out['service']['vs_fused_max_abs_err']:.3e}")
+    return out
+
+
+def sharded_one_rank_path(path: str, group, x, schema, skew) -> dict:
+    """One phase-19 path on the warm plan of phase 4 (A2A) or 7 (X2Y)."""
+    ex = make_executor("sharded")
+    if path == "a2a":
+        X = Y = x
+        fused = pairwise_similarity(x, q=Q, schema=schema,
+                                    executor="fused")[0]
+    else:
+        X, Y = skew["x"], skew["y"]
+        fused = x2y_similarity(X, Y, q=Q, schema=skew["schema"],
+                               executor="fused")[0]
+    _build.reset_launch_counts()
+    with KernelSpy() as spy, host_timers(HOST_FNS) as host:
+        if path == "a2a":
+            sims, plan, _ = pairwise_similarity(x, q=Q, schema=schema,
+                                                executor=ex, mesh=group)
+        else:
+            sims, plan, _ = x2y_similarity(X, Y, q=Q, schema=skew["schema"],
+                                           executor=ex, mesh=group)
+        torch.cuda.synchronize()
+    launched = counts()
+    kernel = "fused_gather_gram" if path == "a2a" else \
+        "fused_gather_gram_rect"
+    kern = spy.check(f"phase 19 sharded {path}")
+    part = ex.partition(plan, 1)
+    groups = ex._groups_for(plan, part) if path == "a2a" else \
+        ex._rect_groups_for(plan, part)
+    assert launched == only(**{kernel: len(groups)}), launched
+    assert ex.stats()["num_shards"] == 1, ex.stats()
+    torch.testing.assert_close(sims, fused, **FP32)
+    return {"launches": launched[kernel],
+            "max_abs_err": kern[kernel]["max_abs_err"],
+            "vs_fused_max_abs_err": max_err(sims, fused),
+            **group_times(X, Y, groups, 0, rect=path != "a2a"),
+            "groups": [(g[0].shape[2], g[-3].shape[2], g[0].shape[1])
+                       for g in groups], "host_s": host}
+
+
+def rank_paths(rank: int, world: int, tables: dict, skew_np,
+               want_x2y) -> dict:
+    """Phase 20's program on one rank of the group, on card ``rank`` modulo
+    the card count (all on ``cuda:0`` with one card): sharded A2A on the
+    ``M_RANKS`` table and coded (r=2) A2A on the ``M_CODED`` one
+    (``tables[path]`` is ``(w, x, the parent's fused matrix)``), sharded
+    X2Y on the skew profile; each matrix against the parent's fused one,
+    each launch against its plain version; kernel ms per stacked group of
+    this rank's slice, collective ms, host seconds of the planners'
+    maps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    out = {"rank": rank, "builds_before": _build.build_counts()}
+    wx, wy, xs_np, ys_np = skew_np
+    X, Y = torch.from_numpy(xs_np).cuda(), torch.from_numpy(ys_np).cuda()
+    for path in ("sharded_a2a", "coded_a2a", "sharded_x2y"):
+        name = path.split("_")[0]
+        ex = make_executor(name)
+        if path in tables:
+            w, x_np, want_np = tables[path]
+            x = torch.from_numpy(x_np).cuda()
+        else:
+            want_np = want_x2y
+
+        def request(schema=None):
+            if path.endswith("a2a"):
+                return pairwise_similarity(x, q=Q, weights=w, schema=schema,
+                                           executor=ex)
+            return x2y_similarity(X, Y, q=Q, wx=wx, wy=wy, schema=schema,
+                                  executor=ex)
+        a2a_before = REGISTRY.counter_total("collective.bytes",
+                                            op="all_to_all")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with KernelSpy() as spy, host_timers(HOST_FNS) as host, \
+                collective_timer() as cold:
+            sims, plan, schema = request()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        a2a_bytes = REGISTRY.counter_total("collective.bytes",
+                                           op="all_to_all") - a2a_before
+        kern = spy.check(f"phase 20 rank {rank} {path}")
+        # the same request again on its schema: the plan, its maps and the
+        # collectives' connections are warm, as for a repeated profile
+        t0 = time.perf_counter()
+        with collective_timer() as coll:
+            again = request(schema)[0]
+            torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        assert torch.equal(again, sims), (rank, path)
+        del again
+        want = torch.from_numpy(want_np).cuda()
+        torch.testing.assert_close(sims, want, **FP32,
+                                   msg=lambda m: f"rank {rank} {path}: {m}")
+        st = ex.stats()
+        if name == "coded":
+            part = ex.partition_coded(plan, world)
+            groups = ex._coded_groups_for(plan, part, False)
+            times = group_times(x, x, groups, rank, rect=True)
+        elif path == "sharded_a2a":
+            groups = ex._groups_for(plan, ex.partition(plan, world))
+            times = group_times(x, x, groups, rank, rect=False)
+        else:
+            groups = ex._rect_groups_for(plan, ex.partition(plan, world))
+            times = group_times(X, Y, groups, rank, rect=True)
+        rec = {"launches": launched, "kernels": kern,
+               "vs_fused_max_abs_err": max_err(sims, want),
+               **times, "wall_s": wall, "warm_wall_s": warm_wall,
+               "collective_ms": coll["ms"], "collectives": coll["calls"],
+               "cold_collective_ms": cold["ms"],
+               "host_s": host, "num_shards": st["num_shards"],
+               "balance_factor": st["balance_factor"]}
+        if name == "coded":
+            led = [r for r in LEDGER.records() if r.executor == "coded"][-1]
+            rec.update({
+                "local_fraction": st["local_fraction"],
+                "replication": st["replication"],
+                "measured_over_predicted": led.measured_over_predicted,
+                "assembly_bytes_per_shard":
+                    led.meta["assembly_bytes_per_shard"],
+                "all_to_all_bytes": a2a_bytes})
+        out[path] = rec
+        del sims, want
+    out["builds_after"] = _build.build_counts()
+    return out
+
+
+def path_record(rec: dict) -> dict:
+    """A phase-19 path in the ``kernels`` line."""
+    return {k: rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "group_ms")}
+
+
+def ranks_record(ranks: dict, path: str, kernel: str) -> dict:
+    """A phase-20 path in the ``kernels`` line: launches per rank, the
+    largest kernel==plain error, and the slowest rank's kernel ms with its
+    plain version's ms and its bound."""
+    recs = [r[path] for r in ranks["ranks"]]
+    slow = max(recs, key=lambda r: r["ms"])
+    return {"launches": [r["launches"][kernel] for r in recs],
+            "max_abs_err": max(r["kernels"][kernel]["max_abs_err"]
+                               for r in recs),
+            "ms": slow["ms"], "plain_ms": slow["plain_ms"],
+            "bound_ms": slow["bound_ms"], "bound_by": slow["bound_by"],
+            "rank_ms": [r["ms"] for r in recs]}
+
+
+def phase_ranks(skew, backend: str = "gloo", ranks: int = RANKS) -> dict:
+    """Phase 20: ``ranks`` gloo ranks spawned on this one card (NCCL
+    refuses two ranks on one GPU, so the collectives run on host tensors;
+    the kernels run on the card).  Every library is built before the
+    spawn, and no rank may run nvcc.  Each rank's matrices are held
+    against this process's fused ones, each launch against its plain
+    version; the coded r=2 ledger must read exactly 2.0, and its assembly
+    bytes must equal the all-to-all tensor's bytes times (S - 1) / S.
+    ``tools/nccl_ranks.py`` runs the same with ``backend="nccl"``, one rank
+    per card."""
+    tables = {}
+    for path, m in (("sharded_a2a", M_RANKS), ("coded_a2a", M_CODED)):
+        w, x_np = bench_profile(m, D, SEED)
+        tables[path] = (w, x_np, pairwise_similarity(
+            torch.from_numpy(x_np).cuda(), q=Q, weights=w,
+            executor="fused")[0].cpu().numpy())
+    want_x2y = x2y_similarity(skew["x"], skew["y"], q=Q, schema=skew[
+        "schema"], executor="fused")[0].cpu().numpy()
+    skew_np = (skew["wx"], skew["wy"], skew["x"].cpu().numpy(),
+               skew["y"].cpu().numpy())
+    _build.build_all(("fused_gather_gram", "fused_gather_gram_rect"))
+    t0 = time.perf_counter()
+    results = compat.run_local_group(
+        rank_paths, ranks, tables, skew_np, want_x2y,
+        backend=backend, timeout_s=GROUP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r in results:
+        builds = sum(r["builds_before"].values()) + \
+            sum(r["builds_after"].values())
+        assert builds == 0, (r["rank"], r["builds_before"],
+                             r["builds_after"])
+        for path in ("sharded_a2a", "coded_a2a", "sharded_x2y"):
+            assert r[path]["num_shards"] == ranks, (r["rank"], path)
+        c = r["coded_a2a"]
+        assert c["measured_over_predicted"] == 2.0, c
+        assert int(c["all_to_all_bytes"] * ((ranks - 1) / ranks)) \
+            == c["assembly_bytes_per_shard"], c
+        for path, kernel in (("sharded_a2a", "fused_gather_gram"),
+                             ("coded_a2a", "fused_gather_gram_rect"),
+                             ("sharded_x2y", "fused_gather_gram_rect")):
+            rec = r[path]
+            assert rec["launches"] == only(**{
+                kernel: len(rec["group_ms"])}), (r["rank"], path, rec)
+            log(f"phase 20 rank {r['rank']}/{ranks} {path}: launches "
+                f"{rec['launches'][kernel]}, kernel==plain max_abs_err "
+                f"{rec['kernels'][kernel]['max_abs_err']:.3e}, ==fused "
+                f"{rec['vs_fused_max_abs_err']:.3e}; kernel ms "
+                f"{rec['ms']:.4f} ({[round(v, 4) for v in rec['group_ms']]}"
+                f"; plain {rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f}"
+                f" {rec['bound_by']}), collective ms "
+                f"{rec['collective_ms']:.2f} over {rec['collectives']} calls "
+                f"(first request {rec['cold_collective_ms']:.2f}), wall "
+                f"{rec['wall_s']:.2f} s (again on the same schema "
+                f"{rec['warm_wall_s'] * 1e3:.1f} ms), "
+                f"host s {nonzero(rec['host_s'])}, balance_factor "
+                f"{rec['balance_factor']:.4f}"
+                + (f", local_fraction {rec['local_fraction']:.4f}, "
+                   f"all-to-all {rec['all_to_all_bytes']} B, ledger "
+                   f"ratio {rec['measured_over_predicted']}"
+                   if path == "coded_a2a" else ""))
+    log(f"phase 20 {ranks} {backend} ranks on {torch.cuda.device_count()} "
+        f"card(s): sharded m={M_RANKS} and coded m={M_CODED} A2A, "
+        f"{MX}x{MY} X2Y, spawn to last result "
+        f"{wall:.1f} s; no rank ran nvcc")
+    return {"ranks": results, "wall_s": wall, "backend": backend}
+
+
 # ------------------------------------------------------------ LM serving
 
 def lm_config():
@@ -1847,6 +2319,9 @@ def main() -> int:
     some = phase_some_pairs(x, x_np, w)
     stream = phase_stream_a2a(x_np, w)
     stream_x2y = phase_stream_x2y(skew)
+    one_rank = phase_sharded_one_rank(x, x_np, w, schema, skew)
+    free_cuda()
+    ranks = phase_ranks(skew)
     free_cuda()
     lm = {"fp32": phase_lm_fp32(), "bf16": phase_lm_bf16(),
           "long": phase_lm_long(), "decode": phase_lm_decode()}
@@ -1885,7 +2360,10 @@ def main() -> int:
                 "max_abs_err": some["errs"]["float32"]},
             "stream_a2a_cold": {
                 "launches": stream["load"]["launches"]["fused_gather_gram"],
-                "max_abs_err": stream["load"]["kernel_err"]}},
+                "max_abs_err": stream["load"]["kernel_err"]},
+            "sharded_a2a_1rank": path_record(one_rank["a2a"]),
+            f"sharded_a2a_{RANKS}ranks": ranks_record(ranks, "sharded_a2a",
+                                                      "fused_gather_gram")},
         "ptxas": build_s["ptxas"]["fused_gather_gram"],
     }]
     rect_paths = {}
@@ -1916,6 +2394,10 @@ def main() -> int:
     rect_paths["stream_x2y_cold"] = {
         "launches": stream_x2y["launches"]["fused_gather_gram_rect"],
         "max_abs_err": stream_x2y["errs"]["float32"]}
+    rect_paths["sharded_x2y_1rank"] = path_record(one_rank["x2y"])
+    for path in ("sharded_x2y", "coded_a2a"):
+        rect_paths[f"{path}_{RANKS}ranks"] = ranks_record(
+            ranks, path, "fused_gather_gram_rect")
     rect_errs = [x2y_skew["errs"], x2y_bal["errs"], stream_x2y["errs"]] + [
         r["kernel_errs"] for r in blocks["blocks"]]
     main_rect = rect_paths["x2y_skew"]
@@ -1989,7 +2471,8 @@ def main() -> int:
             "skew_join": join, "x2y_balanced": x2y_bal, "blocks": blocks,
             "pairwise_gram": pgram, "timing_new": timing_new,
             "some_pairs": some, "stream_a2a": stream,
-            "stream_x2y": stream_x2y, "lm": lm,
+            "stream_x2y": stream_x2y, "sharded_one_rank": one_rank,
+            "ranks": ranks, "lm": lm,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,11 +6,13 @@ into a :class:`ReducerPlan` (``build_x2y_plan`` a rectangular X2Y one,
 ``build_sparse_plan`` / ``block_subplan`` the CSR plan of block serving);
 ``run_reducers`` / ``run_reducers_bucketed`` and their ``_x2y`` twins
 execute a generic reducer over it; the executor registry (``dense``,
-``bucketed``, ``fused``) is the single dispatch point of
-``pairwise_similarity``, ``some_pairs_similarity``, ``x2y_similarity``,
-``pairwise_similarity_block`` and ``skew_join``; ``get_executor("streaming")``
-registers the streaming executor of ``repro_torch.stream`` on first lookup.
-Not ported yet: the ``sharded`` / ``coded`` executors and meshes.
+``bucketed``, ``fused``, ``sharded``, ``coded``) is the single dispatch
+point of ``pairwise_similarity``, ``some_pairs_similarity``,
+``x2y_similarity``, ``pairwise_similarity_block`` and ``skew_join``;
+``get_executor("streaming")`` registers the streaming executor of
+``repro_torch.stream`` on first lookup.  The ``sharded`` and ``coded``
+executors run a plan over a ``torch.distributed`` process group
+(``mesh=``; see ``repro_torch.compat``).
 """
 
 from .allpairs import (
@@ -44,15 +46,20 @@ from .engine import (
     run_reducers,
     run_reducers_bucketed,
     run_reducers_fused,
+    run_reducers_sharded,
     run_reducers_x2y,
     run_reducers_x2y_bucketed,
     table_signatures,
 )
 from .executors import (
     BucketedExecutor,
+    CodedExecutor,
     DenseExecutor,
     Executor,
     FusedExecutor,
+    ShardedExecutor,
+    choose_replication,
+    coded_assembly_model,
     get_executor,
     list_executors,
     make_executor,
@@ -65,11 +72,14 @@ __all__ = [
     "build_sparse_plan", "block_subplan", "build_x2y_plan",
     "build_x2y_plan_arrays", "plan_from_arrays",
     "run_reducers", "run_reducers_bucketed", "run_reducers_x2y",
-    "run_reducers_x2y_bucketed", "run_reducers_fused", "jit_cache_stats",
+    "run_reducers_x2y_bucketed", "run_reducers_fused",
+    "run_reducers_sharded", "jit_cache_stats",
     "configure_jit_cache", "table_signatures", "FUSED_STATS",
     "fused_stats", "reset_fused_stats",
     "block_cache_stats", "configure_block_cache",
     "Executor", "DenseExecutor", "BucketedExecutor", "FusedExecutor",
+    "ShardedExecutor", "CodedExecutor", "coded_assembly_model",
+    "choose_replication",
     "register_executor", "get_executor", "make_executor", "list_executors",
     "pairwise_similarity", "pairwise_similarity_block",
     "some_pairs_similarity", "x2y_similarity",

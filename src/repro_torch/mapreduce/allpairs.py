@@ -38,9 +38,11 @@ from repro_torch.core.schema import MappingSchema
 from repro_torch.kernels.pairwise.ops import pairwise_kernel
 from repro_torch.obs import span as _obs_span
 
-from .engine import (ReducerPlan, SparsePlan, _as_tables, as_table,
-                     build_plan, build_sparse_plan, build_x2y_plan)
-from .executors import get_executor
+from repro_torch.compat import shard_group
+
+from .engine import (ReducerPlan, SparsePlan, _as_tables, _no_mesh,
+                     as_table, build_plan, build_sparse_plan, build_x2y_plan)
+from .executors import ShardedExecutor, get_executor
 
 __all__ = [
     "pairwise_similarity",
@@ -126,6 +128,18 @@ def _block_fn_x2y(metric: str):
     fn.__name__ = f"block_similarity_x2y_{metric}"
     fn.fused_metric = metric
     return fn
+
+
+def _mesh_pad(executor, mesh) -> int:
+    """Reducer-row padding for ``mesh``: its group's size, as the reference
+    pads to the mesh's device count (1 without a mesh).  Only the sharded
+    and coded executors take a mesh; any other raises here, before any
+    planning."""
+    if mesh is None:
+        return 1
+    if not isinstance(get_executor(executor), ShardedExecutor):
+        _no_mesh(mesh)
+    return shard_group(mesh)[1]
 
 
 def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
@@ -292,22 +306,24 @@ def pairwise_similarity(
 
     ``executor='bucketed'`` (default) runs the skew-aware capacity-bucket
     executor; ``'dense'`` the global-max-padded oracle; ``'fused'`` one
-    gather+Gram kernel launch per bucket and one assembly gather.
+    gather+Gram kernel launch per bucket and one assembly gather;
+    ``'sharded'`` / ``'coded'`` run the fused pipeline per rank of the
+    process group ``mesh`` (``None``: the default group if one is
+    initialised, else one shard) and assemble across ranks, with reducer
+    rows padded to the group's size as the reference pads to its mesh.
     ``executor`` may also be an :class:`~repro_torch.mapreduce.executors.
     Executor` instance.  ``device=None`` runs on CUDA (raises without a
     card); pass ``device="cpu"`` for the plain CPU path.  Returns
     (sims (m, m) with zero diagonal, plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution over a mesh is not ported yet")
+    pad = _mesh_pad(executor, mesh)
     with _obs_span("plan", workload="pairs", m=m):
         if schema is None:
             w = (np.full(m, 1.0) if weights is None
                  else np.asarray(weights, float))
             schema = plan_a2a(w, q)
-        plan = _plan_for(schema, pad_reducers_to=1,
+        plan = _plan_for(schema, pad_reducers_to=pad,
                          pad_slots_to=pad_slots_to)
     fn = _block_fn(metric, use_kernel)
     with _obs_span("execute", workload="pairs",
@@ -392,15 +408,13 @@ def some_pairs_similarity(
     :func:`pairwise_similarity`.  Returns (sims (m, m), plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution over a mesh is not ported yet")
+    pad = _mesh_pad(executor, mesh)
     with _obs_span("plan", workload="some_pairs", m=m):
         if schema is None:
             w = (np.full(m, 1.0) if weights is None
                  else np.asarray(weights, float))
             schema = plan_some_pairs(w, q, pairs)
-        plan = _plan_for(schema, pad_reducers_to=1,
+        plan = _plan_for(schema, pad_reducers_to=pad,
                          pad_slots_to=pad_slots_to)
     fn = _block_fn(metric, use_kernel)
     with _obs_span("execute", workload="some_pairs",
@@ -438,21 +452,21 @@ def x2y_similarity(
     Execution is rectangular end to end: reducers emit (Lx, Ly) cross
     blocks (never a padded square), and ``executor='fused'`` runs the
     rectangular gather+Gram kernel with independent row/column gather maps
-    and one assembly gather.  ``use_kernel`` is accepted for signature
-    parity (the fused executor runs its kernel on a CUDA table anyway).
+    and one assembly gather; ``'sharded'`` / ``'coded'`` LPT-balance the
+    rectangular sub-plans over the ranks of ``mesh``.  ``use_kernel`` is
+    accepted for signature parity (the fused executor runs its kernel on a
+    CUDA table anyway).
     ``plan_x2y`` is not memoized (as in the reference), so every call
     plans.  Returns (sims (mx, my), plan, schema)."""
     x, y = _as_tables((x, y), device)
     mx, my = x.shape[0], y.shape[0]
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution over a mesh is not ported yet")
+    pad = _mesh_pad(executor, mesh)
     with _obs_span("plan", workload="x2y", mx=mx, my=my):
         if schema is None:
             wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)
             wy_ = np.full(my, 1.0) if wy is None else np.asarray(wy, float)
             schema = plan_x2y(wx_, wy_, q)
-        plan = _x2y_plan_for(schema, mx, pad_reducers_to=1,
+        plan = _x2y_plan_for(schema, mx, pad_reducers_to=pad,
                              pad_slots_to=pad_slots_to)
     fn = _block_fn_x2y(metric)
     with _obs_span("execute", workload="x2y", reducers=plan.num_reducers):

@@ -35,8 +35,10 @@ shape or dtype that an entry has not served before.
 sub-plans are LRU-cached per ``SparsePlan`` under one shared cap
 (``REPRO_BLOCK_CACHE_SIZE`` / ``configure_block_cache``).
 
-Meshes (sharded execution) are a later slice: ``mesh`` other than ``None``
-raises ``NotImplementedError``.
+The runners here take no ``mesh``: one other than ``None`` raises
+``NotImplementedError``.  Sharded execution over a process group is the
+``sharded`` / ``coded`` executors' (``run_reducers_sharded`` is the shim
+over the former).
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ __all__ = [
     "fused_stats",
     "reset_fused_stats",
     "run_reducers_fused",
+    "run_reducers_sharded",
 ]
 
 
@@ -579,7 +582,7 @@ def plan_from_arrays(fields: dict) -> ReducerPlan:
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded execution over a mesh is not ported yet")
+            "only the 'sharded' and 'coded' executors take a mesh")
 
 
 def as_table(inputs, device=None) -> torch.Tensor:
@@ -1025,3 +1028,13 @@ def run_reducers_fused(inputs, plan, reducer_fn, **kwargs):
     :class:`repro_torch.mapreduce.executors.FusedExecutor`)."""
     from .executors import get_executor
     return get_executor("fused").run(inputs, plan, reducer_fn, **kwargs)
+
+
+def run_reducers_sharded(inputs, plan, reducer_fn, **kwargs):
+    """Shard-balanced execution over a process group: shim over
+    ``get_executor("sharded").run`` (see
+    :class:`repro_torch.mapreduce.executors.ShardedExecutor`: the plan is
+    LPT-partitioned over the group's ranks and each rank runs the
+    gather+Gram kernel over its own reducers)."""
+    from .executors import get_executor
+    return get_executor("sharded").run(inputs, plan, reducer_fn, **kwargs)

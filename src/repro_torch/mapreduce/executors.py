@@ -28,14 +28,28 @@ Registered executors:
                 gather through the inverse-shuffle source map.  Non-Gram
                 reducers fall back to bucketed, counted.
 
+``sharded``   — shard-balanced execution over a process group (the
+                "mesh", see ``repro_torch.compat``): ``partition_plan``
+                LPT-balances the reducers over the group's ranks, each rank
+                runs the gather+Gram kernel over its own reducers only, and
+                ONE all-gather of the finished blocks assembles the matrix
+                through a source map (``run_pairs`` / ``run_x2y``) or a
+                scatter into reducer order (``run``).
+``coded``     — coded shuffle execution (Afrati et al., arXiv:1206.4377):
+                every reducer is replicated on ``r`` ranks, the output is
+                row-sliced over the ranks, a rank serves its slice's cells
+                from local blocks where it holds a replica, and only the
+                residual entries cross ranks, in ONE all-to-all; a final
+                all-gather of the row slices gives every rank the matrix.
 ``streaming`` — ``repro_torch.stream.StreamingExecutor``, registered on
                 its first lookup: cold builds on ``fused``, then the
                 maintained pair matrix patched per edit.
 
 On dense and bucketed, ``use_kernel=True`` reducers (``allpairs._block_fn``)
 compute each block with the ``pairwise_gram`` kernel, one batched launch
-per gather.  Not ported yet: ``sharded`` and ``coded``; a ``mesh`` raises
-``NotImplementedError``, and so does ``lower`` (see ``Executor.lower``).
+per gather.  Only ``sharded`` and ``coded`` take a ``mesh``; the others
+raise ``NotImplementedError`` on one, and every executor's ``lower`` raises
+(see ``Executor.lower``).
 """
 
 from __future__ import annotations
@@ -45,6 +59,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import compat as _compat
+from repro_torch.core.planner import PlanPartition, partition_plan
 from repro_torch.kernels.pairwise.fused_gather_gram import (
     fused_gather_gram,
     fused_gather_gram_rect,
@@ -74,6 +90,10 @@ __all__ = [
     "DenseExecutor",
     "BucketedExecutor",
     "FusedExecutor",
+    "ShardedExecutor",
+    "CodedExecutor",
+    "coded_assembly_model",
+    "choose_replication",
     "register_executor",
     "get_executor",
     "make_executor",
@@ -240,6 +260,52 @@ def _bucket_valid_slots(plan) -> int:
         else:
             n = _plan_valid_slots(plan)
         object.__setattr__(plan, "_obs_bucket_slots", n)
+    return n
+
+
+def _group_valid_slots(plan, cache_key, groups, count_y: bool) -> int:
+    """Valid gather slots in stacked shard groups (the sharded/coded
+    executors' measured side).  5-tuple groups carry (xi, xm, yi, ym,
+    rows); ``count_y=False`` for the square coded path, where xm and ym
+    are the same gather and copies must be counted once.  Cached on the
+    plan per (shards, replication, rect) key."""
+    cache = plan.__dict__.get("_obs_group_slots")
+    if cache is None:
+        cache = {}
+        object.__setattr__(plan, "_obs_group_slots", cache)
+    n = cache.get(cache_key)
+    if n is None:
+        n = 0
+        for grp in groups:
+            if len(grp) >= 5:
+                n += int(np.asarray(grp[1]).sum())
+                if count_y:
+                    n += int(np.asarray(grp[3]).sum())
+            else:                       # (idx, mask, rows) square stack
+                n += int(np.asarray(grp[1]).sum())
+        cache[cache_key] = n
+    return n
+
+
+def _group_gram_entries(plan, cache_key, groups) -> int:
+    """Gram entries the stacked shard groups produce — what the sharded
+    all-gather assembly ships.  Cached on the plan (same cache as the slot
+    sums, disjoint keys)."""
+    cache = plan.__dict__.get("_obs_group_slots")
+    if cache is None:
+        cache = {}
+        object.__setattr__(plan, "_obs_group_slots", cache)
+    n = cache.get(cache_key)
+    if n is None:
+        n = 0
+        for grp in groups:
+            if len(grp) >= 5:            # rect: (xi, xm, yi, ym, rows)
+                xi, yi = grp[0], grp[2]
+                n += int(np.prod(xi.shape[:2])) * xi.shape[2] * yi.shape[2]
+            else:                        # square: (idx, mask, rows)
+                i = grp[0]
+                n += int(np.prod(i.shape[:2])) * i.shape[2] ** 2
+        cache[cache_key] = n
     return n
 
 
@@ -413,6 +479,14 @@ def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
     return torch.where(valid, g, 0.0)
 
 
+def _table_norms(xt, yt, metric: str):
+    """Per-row fp32 squared norms of both tables (``None`` for ``dot``,
+    which needs none) — what ``_finish_rect_blocks`` gathers."""
+    if metric == "dot":
+        return None, None
+    return xt.float().square().sum(-1), yt.float().square().sum(-1)
+
+
 class FusedExecutor(Executor):
     """Fused shuffle execution: the gathered block stays out of memory.
 
@@ -534,8 +608,7 @@ class FusedExecutor(Executor):
             f"srcmap-rect:{mx}x{my}", plan, xt,
             lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
                                         device=dev).long(), ytable=yt)
-        n2x, n2y = (None, None) if metric == "dot" else (
-            xt.float().square().sum(-1), yt.float().square().sum(-1))
+        n2x, n2y = _table_norms(xt, yt, metric)
         vals = [torch.zeros(1, dtype=torch.float32, device=xt.device)]
         for xidx, xmsk, yidx, ymsk, _ in arrays:
             g = fused_gather_gram_rect(xt, yt, xidx, xmsk, yidx, ymsk)
@@ -547,8 +620,825 @@ class FusedExecutor(Executor):
 
 
 # ---------------------------------------------------------------------------
+# sharded (LPT-balanced, one rank per shard) executor
+# ---------------------------------------------------------------------------
+def _stacked_groups(plan: ReducerPlan, part: PlanPartition,
+                    rows_by_shard=None):
+    """Stack the partition into uniform per-width arrays.
+
+    For every execution width ``w`` appearing in the partition, build
+    ``idx (S, Rw, w)`` / ``mask (S, Rw, w)`` / ``rows (S, Rw)`` where
+    ``Rw = max_s |shard s's width-w reducers|`` — each shard's rows padded
+    (masked, rows -> plan.R) to the common count, so every rank runs the
+    same shapes and the ranks' blocks concatenate into one all-gather.
+    LPT balances total work, so the cross-shard padding this stacking adds
+    is small exactly when the balance factor is small.  Returns
+    ``[(idx, mask, rows), ...]`` with widths ascending (numpy; the executor
+    uploads its rank's slice once per plan).
+
+    ``rows_by_shard`` overrides the per-shard row sets (default: the
+    partition's primary ``shard_rows``) — the coded executor passes
+    ``part.replica_rows`` so every shard's stack holds all of its
+    replicas, not just its primary assignment.
+    """
+    S = part.num_shards
+    R0 = plan.num_reducers
+    widths = part.widths
+    if rows_by_shard is None:
+        rows_by_shard = part.shard_rows
+    # per-global-row source arrays at the row's execution width
+    if plan.buckets:
+        src_idx = {}
+        src_mask = {}
+        for b in plan.buckets:
+            rows = np.asarray(b.rows)
+            for i, g in enumerate(rows):
+                if 0 <= g < R0:
+                    src_idx[int(g)] = np.asarray(b.idx)[i]
+                    src_mask[int(g)] = np.asarray(b.mask)[i]
+    else:
+        src_idx = {r: np.asarray(plan.idx)[r] for r in range(R0)}
+        src_mask = {r: np.asarray(plan.mask)[r] for r in range(R0)}
+
+    groups = []
+    for w in sorted(set(int(x) for x in widths)) if R0 else []:
+        per_shard = [rows[widths[rows] == w] for rows in rows_by_shard]
+        Rw = max((len(p) for p in per_shard), default=0)
+        if Rw == 0:
+            continue
+        idx = np.zeros((S, Rw, w), np.int32)
+        mask = np.zeros((S, Rw, w), bool)
+        rows_out = np.full((S, Rw), plan.R, np.int32)   # padding -> row R
+        for s, p in enumerate(per_shard):
+            for k, g in enumerate(p):
+                idx[s, k, :] = src_idx[int(g)][:w]
+                mask[s, k, :] = src_mask[int(g)][:w]
+                rows_out[s, k] = int(g)
+        groups.append((idx, mask, rows_out))
+    return groups
+
+
+def _sharded_srcmap(groups, m: int) -> np.ndarray:
+    """Inverse-shuffle map for the cross-shard assembly gather: (m, m)
+    int32 positions into ``[0.0, group_0.ravel(), group_1.ravel(), ...]``
+    of the stacked per-width Gram outputs (each ``(S, Rw, w, w)``).
+    Uncovered cells and the diagonal point at slot 0 (-> 0.0)."""
+    srcmap = np.zeros((m, m), np.int32)
+    base = 1
+    for idx, mask, _rows in groups:
+        S, Rw, w = idx.shape
+        flat_idx = idx.reshape(S * Rw, w)
+        flat_mask = mask.reshape(S * Rw, w)
+        rows = np.broadcast_to(flat_idx[:, :, None], (S * Rw, w, w))
+        cols = np.broadcast_to(flat_idx[:, None, :], (S * Rw, w, w))
+        valid = flat_mask[:, :, None] & flat_mask[:, None, :]
+        pos = np.arange(base, base + S * Rw * w * w,
+                        dtype=np.int64).reshape(S * Rw, w, w)
+        srcmap[rows[valid], cols[valid]] = pos[valid]
+        base += S * Rw * w * w
+    np.fill_diagonal(srcmap, 0)
+    return srcmap
+
+
+def _stacked_rect_groups(plan: ReducerPlan, part: PlanPartition,
+                         rows_by_shard=None):
+    """Rectangular analogue of :func:`_stacked_groups`: groups keyed by the
+    (wx, wy) execution-width *pair*, each stacked into
+    ``xidx/xmask (S, Rw, wx)``, ``yidx/ymask (S, Rw, wy)``, ``rows (S, Rw)``
+    arrays (padding rows masked, rows -> plan.R).  ``rows_by_shard``
+    overrides the per-shard row sets as in :func:`_stacked_groups`."""
+    S = part.num_shards
+    R0 = plan.num_reducers
+    widths = part.widths
+    ywidths = part.ywidths
+    if rows_by_shard is None:
+        rows_by_shard = part.shard_rows
+    src = {}
+    if plan.buckets:
+        for b in plan.buckets:
+            rows = np.asarray(b.rows)
+            for i, g in enumerate(rows):
+                if 0 <= g < R0:
+                    src[int(g)] = (np.asarray(b.idx)[i],
+                                   np.asarray(b.mask)[i],
+                                   np.asarray(b.yidx)[i],
+                                   np.asarray(b.ymask)[i])
+    else:
+        for r in range(R0):
+            src[r] = (np.asarray(plan.idx)[r], np.asarray(plan.mask)[r],
+                      np.asarray(plan.yidx)[r], np.asarray(plan.ymask)[r])
+
+    keys = sorted({(int(widths[r]), int(ywidths[r]))
+                   for r in range(R0)}) if R0 else []
+    groups = []
+    for wx, wy in keys:
+        per_shard = [rows[(widths[rows] == wx) & (ywidths[rows] == wy)]
+                     for rows in rows_by_shard]
+        Rw = max((len(p) for p in per_shard), default=0)
+        if Rw == 0:
+            continue
+        xidx = np.zeros((S, Rw, wx), np.int32)
+        xmask = np.zeros((S, Rw, wx), bool)
+        yidx = np.zeros((S, Rw, wy), np.int32)
+        ymask = np.zeros((S, Rw, wy), bool)
+        rows_out = np.full((S, Rw), plan.R, np.int32)   # padding -> row R
+        for s, p in enumerate(per_shard):
+            for k, g in enumerate(p):
+                xi, xm, yi, ym = src[int(g)]
+                xidx[s, k, :] = xi[:wx]
+                xmask[s, k, :] = xm[:wx]
+                yidx[s, k, :] = yi[:wy]
+                ymask[s, k, :] = ym[:wy]
+                rows_out[s, k] = int(g)
+        groups.append((xidx, xmask, yidx, ymask, rows_out))
+    return groups
+
+
+def _sharded_rect_srcmap(groups, shape: tuple[int, int]) -> np.ndarray:
+    """Rectangular cross-shard assembly map: (mx, my) int32 positions into
+    ``[0.0, group_0.ravel(), ...]`` of the stacked per-(wx, wy) cross-Gram
+    outputs (each ``(S, Rw, wx, wy)``).  No diagonal to zero — an (x, y)
+    pair is never a self-pair; uncovered cells point at slot 0."""
+    mx, my = shape
+    srcmap = np.zeros((mx, my), np.int32)
+    base = 1
+    for xidx, xmask, yidx, ymask, _rows in groups:
+        S, Rw, wx = xidx.shape
+        wy = yidx.shape[2]
+        fx = xidx.reshape(S * Rw, wx)
+        fxm = xmask.reshape(S * Rw, wx)
+        fy = yidx.reshape(S * Rw, wy)
+        fym = ymask.reshape(S * Rw, wy)
+        rows = np.broadcast_to(fx[:, :, None], (S * Rw, wx, wy))
+        cols = np.broadcast_to(fy[:, None, :], (S * Rw, wx, wy))
+        valid = fxm[:, :, None] & fym[:, None, :]
+        pos = np.arange(base, base + S * Rw * wx * wy,
+                        dtype=np.int64).reshape(S * Rw, wx, wy)
+        srcmap[rows[valid], cols[valid]] = pos[valid]
+        base += S * Rw * wx * wy
+    return srcmap
+
+
+def _check_int32(entries: int) -> None:
+    """Source-map positions are int32, as in the reference, so the vector
+    a map indexes must stay below 2**31 entries (the reference wraps; the
+    port raises, as its fused path does)."""
+    if entries > np.iinfo(np.int32).max:
+        raise OverflowError(
+            f"{entries} block entries overflow the int32 source map")
+
+
+def _group_entries(groups) -> int:
+    """Gram entries of stacked groups: ``(S, Rw, wx) x wy`` each (the
+    square stacks' idx is their Y side too)."""
+    return sum(int(np.prod(g[0].shape)) * g[-3].shape[2] for g in groups)
+
+
+def _rank_slices(kind: str, plan, xt, groups, rank: int, n: int, yt=None):
+    """This rank's slice ``a[rank]`` of the first ``n`` arrays of every
+    stacked group, on the table's device, uploaded once per (plan, device,
+    ``kind``) through the upload LRU."""
+    return uploaded(kind, plan, xt, lambda dev: tuple(
+        tuple(torch.as_tensor(a[rank], device=dev) for a in grp[:n])
+        for grp in groups), ytable=yt)
+
+
+def _by_group(gathered: torch.Tensor, shapes, S: int) -> list:
+    """The all-gathered vector is rank-major (rank 0's blocks of every
+    group, then rank 1's, ...); the source maps index the groups one after
+    the other, each ``(S, Rw, wx, wy)``.  Returns one such view per
+    group."""
+    per = gathered.view(S, -1).split([r * a * b for r, a, b in shapes], 1)
+    return [p.reshape(S, *shape) for p, shape in zip(per, shapes)]
+
+
+def _with_zero_slot(blocks) -> torch.Tensor:
+    """``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]``: the vector a
+    source map indexes (slot 0 for uncovered cells)."""
+    return torch.cat([blocks[0].new_zeros(1)]
+                     + [b.reshape(-1) for b in blocks])
+
+
+class ShardedExecutor(Executor):
+    """Shard-balanced execution of a reducer plan over a process group.
+
+    ``repro_torch.core.planner.partition_plan`` LPT-balances the plan's
+    reducers (weighted by per-reducer gather+FLOP work at their
+    capacity-bucket width) over the group's ranks.  The partition is
+    stacked into uniform per-width arrays, and every rank launches the
+    gather+Gram kernel once per width group over exactly its own slice
+    (its plain version on a CPU table).  The only cross-rank communication
+    is ONE all-gather of the finished blocks, which the (m, m) matrix is
+    then gathered from through a host-built source map (``run_pairs``),
+    or which is scattered back into reducer order (``run``).  Every rank
+    returns the whole result.
+
+    ``mesh`` is a ``torch.distributed.ProcessGroup`` (``None``: the default
+    group if one is initialised, else one shard; see
+    ``repro_torch.compat.shard_group``).  Like the fused executor, only
+    Gram-block reducers (``fused_metric`` tag) take the sharded path;
+    anything else, and an empty plan, falls back to the bucketed executor
+    (counted in ``stats()``), which then runs whole on every rank.
+    """
+
+    name = "sharded"
+
+    def _fresh_stats(self) -> dict:
+        return {"calls": 0, "sharded": 0, "fallbacks": 0, "num_shards": 0,
+                "balance_factor": 0.0}
+
+    # -- partition plumbing (host-side static artifacts, cached on plan) --
+    def partition(self, plan: ReducerPlan,
+                  num_shards: int) -> PlanPartition:
+        """The plan's LPT partition for ``num_shards`` (cached on the plan
+        like the index matrix: a static artifact reused across waves)."""
+        cache = plan.__dict__.get("_shard_partition_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_shard_partition_cache", cache)
+        part = cache.get(num_shards)
+        if part is None:
+            part = partition_plan(plan, num_shards)
+            cache[num_shards] = part
+        return part
+
+    def _groups_for(self, plan, part):
+        cache = plan.__dict__.get("_shard_groups_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_shard_groups_cache", cache)
+        groups = cache.get(part.num_shards)
+        if groups is None:
+            groups = _stacked_groups(plan, part)
+            cache[part.num_shards] = groups
+        return groups
+
+    def _srcmap_for(self, plan, groups, num_shards: int, m: int):
+        cache = plan.__dict__.get("_shard_srcmap_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_shard_srcmap_cache", cache)
+        srcmap = cache.get((num_shards, m))
+        if srcmap is None:
+            _check_int32(1 + _group_entries(groups))
+            srcmap = _sharded_srcmap(groups, m)
+            cache[(num_shards, m)] = srcmap
+        return srcmap
+
+    def _rect_groups_for(self, plan, part):
+        cache = plan.__dict__.get("_shard_rect_groups_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_shard_rect_groups_cache", cache)
+        groups = cache.get(part.num_shards)
+        if groups is None:
+            groups = _stacked_rect_groups(plan, part)
+            cache[part.num_shards] = groups
+        return groups
+
+    def _rect_srcmap_for(self, plan, groups, num_shards: int, shape):
+        cache = plan.__dict__.get("_shard_rect_srcmap_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_shard_rect_srcmap_cache", cache)
+        srcmap = cache.get((num_shards, shape))
+        if srcmap is None:
+            _check_int32(1 + _group_entries(groups))
+            srcmap = _sharded_rect_srcmap(groups, shape)
+            cache[(num_shards, shape)] = srcmap
+        return srcmap
+
+    def _note(self, part: PlanPartition) -> None:
+        self._stats["num_shards"] = part.num_shards
+        self._stats["balance_factor"] = float(part.balance_factor)
+        _REGISTRY_OBS.gauge("executor.num_shards",
+                            executor=self.name).set(part.num_shards)
+        _REGISTRY_OBS.gauge("executor.balance_factor",
+                            executor=self.name).set(part.balance_factor)
+
+    def _dispatch(self, x, plan, metric, combine, srcmap_m, mesh,
+                  shard_axes, workload: str = "reduce"):
+        group, S, rank = _compat.shard_group(mesh, shard_axes)
+        part = self.partition(plan, S)
+        groups = self._groups_for(plan, part)
+        self._count("sharded")
+        self._note(part)
+        if _obs_config.ENABLED:
+            assembled = 0
+            meta = {"num_shards": S, "combine": combine}
+            if combine == "pairs":
+                _d, isz = _row_bytes(x)
+                per_shard = int(_group_gram_entries(
+                    plan, ("gram", S), groups) * isz * (S - 1) / S)
+                assembled = S * per_shard
+                meta["assembly_bytes_per_shard"] = per_shard
+            self._reconcile(
+                plan, workload, x,
+                measured_slots=_group_valid_slots(
+                    plan, ("sharded", S), groups, count_y=False),
+                assembled_bytes=assembled, meta=meta)
+        local = torch.cat([
+            _finish_fused_blocks(fused_gather_gram(x, idx, msk), msk,
+                                 metric).reshape(-1)
+            for idx, msk in _rank_slices(f"sharded:{S}:{rank}", plan, x,
+                                         groups, rank, 2)])
+        # ONE cross-rank collective: every rank's finished blocks
+        blocks = _by_group(_compat.all_gather(local, group),
+                           [(i.shape[1], i.shape[2], i.shape[2])
+                            for i, _k, _r in groups], S)
+        if combine == "pairs":
+            srcmap = uploaded(
+                f"sharded-srcmap:{S}:{srcmap_m}", plan, x,
+                lambda dev: torch.as_tensor(
+                    self._srcmap_for(plan, groups, S, srcmap_m),
+                    device=dev).long())
+            return _with_zero_slot(blocks)[srcmap]
+        # dense combine: scatter the blocks (padded to the dense width)
+        # back into reducer order; padding rows drop into row R
+        rows = uploaded(f"sharded-rows:{S}", plan, x, lambda dev: tuple(
+            torch.as_tensor(r.reshape(-1), device=dev).long()
+            for _i, _k, r in groups))
+        R, L = plan.R, plan.L
+        acc = torch.zeros((R + 1, L, L), dtype=torch.float32,
+                          device=x.device)
+        for r, g in zip(rows, blocks):
+            w = g.shape[-1]
+            acc[r] = torch.nn.functional.pad(g.reshape(-1, w, w),
+                                             (0, L - w, 0, L - w))
+        return acc[:R]
+
+    # -- protocol ----------------------------------------------------------
+    def run(self, inputs, plan, reducer_fn, *, mesh=None, shard_axes=None,
+            device=None, combine: str = "dense"):
+        """Dense-combine semantics match ``run_reducers`` for Gram-block
+        reducers; non-Gram reducers fall back to the bucketed executor
+        (identical outputs — sharding is a pure execution-plan change)."""
+        assert combine == "dense", combine
+        x = as_table(inputs, device)
+        self._count("calls")
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or plan.num_reducers == 0:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "empty_plan")
+            return run_reducers_bucketed(x, plan, reducer_fn,
+                                         combine=combine, device=x.device)
+        return self._dispatch(x, plan, metric, "dense", None, mesh,
+                              shard_axes)
+
+    def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
+                  use_kernel=False, device=None):
+        """``use_kernel`` is accepted for signature parity: on a CUDA table
+        every rank runs the kernel."""
+        from .allpairs import assemble_pair_matrix_bucketed
+        x = as_table(x, device)
+        self._count("calls")
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or plan.num_reducers == 0:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "empty_plan")
+            self._reconcile(plan, "pairs", x,
+                            measured_slots=_bucket_valid_slots(plan))
+            per_bucket = run_reducers_bucketed(x, plan, reducer_fn,
+                                               combine="buckets",
+                                               device=x.device)
+            return assemble_pair_matrix_bucketed(per_bucket, m,
+                                                 device=x.device)
+        return self._dispatch(x, plan, metric, "pairs", m, mesh, None,
+                              workload="pairs")
+
+    def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
+                use_kernel=False, device=None):
+        """LPT-balance the rectangular plan over the group (per-reducer
+        work = wx + wy + flop·wx·wy), launch the rectangular gather+Gram
+        kernel per (wx, wy) group on every rank's own slice, and assemble
+        the (mx, my) matrix from ONE all-gather.  Non-Gram reducers fall
+        back to the rect-bucketed path (counted)."""
+        from .allpairs import assemble_x2y_matrix_bucketed
+        xt, yt = _as_tables(tables, device)
+        self._count("calls")
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or plan.num_reducers == 0:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "empty_plan")
+            self._reconcile(plan, "x2y", xt,
+                            measured_slots=_bucket_valid_slots(plan))
+            per_bucket = run_reducers_x2y_bucketed(
+                (xt, yt), plan, reducer_fn, combine="buckets",
+                device=xt.device)
+            return assemble_x2y_matrix_bucketed(per_bucket, shape,
+                                                device=xt.device)
+        group, S, rank = _compat.shard_group(mesh)
+        part = self.partition(plan, S)
+        groups = self._rect_groups_for(plan, part)
+        self._count("sharded")
+        self._note(part)
+        if _obs_config.ENABLED:
+            _d, isz = _row_bytes(xt)
+            per_shard = int(_group_gram_entries(
+                plan, ("gram_rect", S), groups) * isz * (S - 1) / S)
+            self._reconcile(
+                plan, "x2y", xt,
+                measured_slots=_group_valid_slots(
+                    plan, ("sharded_rect", S), groups, count_y=True),
+                assembled_bytes=S * per_shard,
+                meta={"num_shards": S,
+                      "assembly_bytes_per_shard": per_shard})
+        n2x, n2y = _table_norms(xt, yt, metric)
+        local = torch.cat([
+            _finish_rect_blocks(fused_gather_gram_rect(xt, yt, *s), *s,
+                                n2x, n2y, metric).reshape(-1)
+            for s in _rank_slices(f"sharded-x2y:{S}:{rank}", plan, xt,
+                                  groups, rank, 4, yt)])
+        # ONE cross-rank collective, then the inverse shuffle
+        blocks = _by_group(_compat.all_gather(local, group),
+                           [(xi.shape[1], xi.shape[2], yi.shape[2])
+                            for xi, _xm, yi, _ym, _r in groups], S)
+        mx, my = shape
+        srcmap = uploaded(
+            f"sharded-srcmap-rect:{S}:{mx}x{my}", plan, xt,
+            lambda dev: torch.as_tensor(
+                self._rect_srcmap_for(plan, groups, S, (mx, my)),
+                device=dev).long(), ytable=yt)
+        return _with_zero_slot(blocks)[srcmap]
+
+
+# ---------------------------------------------------------------------------
+# coded (replicated shuffle) executor
+# ---------------------------------------------------------------------------
+def _coded_maps(groups, shape: tuple[int, int], row_block: int,
+                zero_diag: bool):
+    """Host-side maps for the coded combining stage.
+
+    ``groups`` are replica-stacked rect groups
+    ``[(xidx (S,Rw,wx), xmask, yidx (S,Rw,wy), ymask, rows (S,Rw)), ...]``
+    where ``rows`` holds each shard's full replica set (padding slots have
+    all-false masks and are skipped).  The output ``(mx, my)`` matrix is
+    row-sliced: shard ``s`` owns rows ``[s*row_block, (s+1)*row_block)``.
+
+    Per output cell the serving Gram entry is resolved to either a
+    position in the owning shard's *local* value vector (a replica is
+    held: zero traffic) or a slot in the residual exchange: for every
+    (block, destination) pair with no local replica, the block rows whose
+    output rows fall in the destination's slice — never the whole block —
+    are stride-split across ALL replica holders (least-filled lane
+    first), so each holder ships ~1/r of the residual and the exchange
+    lanes shrink as replication grows.  The residual is batched into
+    per-destination lanes and moved by ONE all-to-all sized by the
+    maximum lane.
+
+    Returns ``(sendmap (S, S, E) int32`` into the shard-local value
+    vector, ``srcmap (S, row_block, my) int32`` into
+    ``[vals_local (Lv), recv (S*E)]``, and a stats dict).  Slot 0 of the
+    value vector is 0.0 (uncovered cells, padding lanes, the diagonal).
+    """
+    mx, my = shape
+    S = groups[0][0].shape[0] if groups else 1
+    bases = []
+    Lv = 1
+    for xidx, _xm, yidx, _ym, _rows in groups:
+        bases.append(Lv)
+        Lv += xidx.shape[1] * xidx.shape[2] * yidx.shape[2]
+
+    # holders: global row -> [(shard, group, slot), ...] (replica set)
+    holders: dict[int, list] = {}
+    for gi, (_xi, xmask, _yi, ymask, rows) in enumerate(groups):
+        live = xmask.any(axis=2) & ymask.any(axis=2)      # (S, Rw)
+        for s, k in np.argwhere(live):
+            holders.setdefault(int(rows[s, k]), []).append(
+                (int(s), gi, int(k)))
+
+    send: list[list[list]] = [[[] for _ in range(S)] for _ in range(S)]
+    cnt = np.zeros((S, S), dtype=np.int64)
+    recv_fill: list[list] = [[] for _ in range(S)]
+    srcmap = np.zeros((S, row_block, my), dtype=np.int64)
+    local_entries = 0
+    for _b, hl in holders.items():
+        s0, gi, k0 = hl[0]
+        xidx, xmask, yidx, ymask, _rows = groups[gi]
+        wx, wy = xidx.shape[2], yidx.shape[2]
+        pv = np.flatnonzero(xmask[s0, k0])
+        qv = np.flatnonzero(ymask[s0, k0])
+        if not pv.size or not qv.size:
+            continue
+        gx = xidx[s0, k0][pv].astype(np.int64)
+        gy = yidx[s0, k0][qv].astype(np.int64)
+        ds = gx // row_block
+        hpos = {s: bases[g] + k * wx * wy for s, g, k in hl}
+        for s in np.unique(ds):
+            s = int(s)
+            sel = ds == s
+            p_s, gx_s = pv[sel], gx[sel]
+            if s in hpos:                      # local replica: no traffic
+                pos = hpos[s] + (p_s[:, None] * wy + qv[None, :])
+                srcmap[s][np.ix_(gx_s - s * row_block, gy)] = pos
+                local_entries += pos.size
+            else:                              # residual: split over holders
+                hs = sorted(hpos, key=lambda tt: cnt[tt, s])
+                for j, t in enumerate(hs):
+                    p_j, gx_j = p_s[j::len(hs)], gx_s[j::len(hs)]
+                    if not p_j.size:
+                        continue
+                    pos = hpos[t] + (p_j[:, None] * wy + qv[None, :])
+                    send[t][s].append(pos.ravel())
+                    recv_fill[s].append((t, int(cnt[t, s]), gx_j, gy))
+                    cnt[t, s] += pos.size
+    E = max(1, int(cnt.max(initial=0)))
+    sendmap = np.zeros((S, S, E), dtype=np.int64)
+    for t in range(S):
+        for s in range(S):
+            if send[t][s]:
+                v = np.concatenate(send[t][s])
+                sendmap[t, s, :len(v)] = v
+    for s in range(S):
+        for t, e0, gx_s, gy in recv_fill[s]:
+            e = e0 + np.arange(len(gx_s) * len(gy), dtype=np.int64)
+            srcmap[s][np.ix_(gx_s - s * row_block, gy)] = (
+                Lv + t * E + e.reshape(len(gx_s), len(gy)))
+    if zero_diag:
+        for s in range(S):
+            d = np.arange(s * row_block, min((s + 1) * row_block, mx))
+            srcmap[s, d - s * row_block, d] = 0
+    stats = {
+        "local_entries": int(local_entries),
+        "residual_entries": int(cnt.sum()),
+        "lane_max": E,
+        "lane_fill": float(cnt.sum() / max(S * S * E, 1)),
+        "vals_len": int(Lv),
+    }
+    return (sendmap.astype(np.int32), srcmap.astype(np.int32), stats)
+
+
+class CodedExecutor(ShardedExecutor):
+    """Coded shuffle execution: trade replication for cross-rank traffic.
+
+    The sharded executor pays ONE all-gather to assemble the (m, m)
+    matrix — every rank receives every Gram stack.  The coded executor
+    (the coded-MapReduce tradeoff of Afrati et al., arXiv:1206.4377)
+    spends replication to cut that traffic: ``partition_plan(...,
+    replication=r)`` materializes each reducer's sub-plan on r LPT-chosen
+    ranks, the output matrix is row-sliced across ranks, and assembly
+    becomes a coded combining stage — a rank holding a replica serves its
+    slice's cells from local Gram entries (zero traffic), and only the
+    residual entries (block rows owned by a slice with no replica) are
+    exchanged, batched into per-destination lanes and moved by ONE
+    all-to-all.  Per rank the residual is ~``2G/S * (1 - r/S)`` entries
+    (G = total Gram entries) vs ~``G`` for the uncoded all-gather;
+    ``choose_replication`` picks the knee of the
+    replication-vs-communication frontier.
+
+    Every rank runs the rectangular gather+Gram kernel once per stacked
+    group over its replicas (the square path passes one table as both
+    sides).  The reference returns a row-sharded global array; here every
+    rank returns the whole matrix, so a last all-gather of the row slices
+    follows the coded exchange (the comm ledger does not count it, as the
+    reference does not count reading its global array).  Same fallback
+    rules as the sharded executor (Gram-block reducers only);
+    ``replication`` is clamped to the group's size.
+    """
+
+    name = "coded"
+
+    def __init__(self, stats: Optional[dict] = None, replication: int = 2):
+        super().__init__(stats=stats)
+        self.replication = int(replication)
+
+    def _fresh_stats(self) -> dict:
+        return {"calls": 0, "coded": 0, "fallbacks": 0, "num_shards": 0,
+                "balance_factor": 0.0, "replication": 0,
+                "local_entries": 0, "residual_entries": 0,
+                "local_fraction": 0.0}
+
+    # -- replication-aware partition plumbing (cached on the plan) --------
+    def partition_coded(self, plan: ReducerPlan, num_shards: int,
+                        replication: Optional[int] = None) -> PlanPartition:
+        r = min(self.replication if replication is None else int(replication),
+                num_shards)
+        cache = plan.__dict__.get("_coded_partition_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_coded_partition_cache", cache)
+        part = cache.get((num_shards, r))
+        if part is None:
+            part = partition_plan(plan, num_shards, replication=r)
+            cache[(num_shards, r)] = part
+        return part
+
+    def _coded_groups_for(self, plan, part, rect: bool):
+        cache = plan.__dict__.get("_coded_groups_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_coded_groups_cache", cache)
+        key = (part.num_shards, part.replication, rect)
+        groups = cache.get(key)
+        if groups is None:
+            if rect:
+                groups = _stacked_rect_groups(
+                    plan, part, rows_by_shard=part.replica_rows)
+            else:
+                groups = [(i, k, i, k, r) for i, k, r in _stacked_groups(
+                    plan, part, rows_by_shard=part.replica_rows)]
+            cache[key] = groups
+        return groups
+
+    def _coded_maps_for(self, plan, groups, part, shape, zero_diag: bool):
+        cache = plan.__dict__.get("_coded_maps_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_coded_maps_cache", cache)
+        key = (part.num_shards, part.replication, tuple(shape), zero_diag)
+        maps = cache.get(key)
+        if maps is None:
+            _check_int32(1 + _group_entries(groups))
+            rb = -(-shape[0] // part.num_shards)
+            maps = _coded_maps(groups, tuple(shape), rb, zero_diag)
+            _check_int32(maps[2]["vals_len"]
+                         + part.num_shards * maps[2]["lane_max"])
+            cache[key] = maps
+        return maps
+
+    def _note_coded(self, part: PlanPartition, mstats: dict) -> None:
+        self._note(part)
+        self._stats["replication"] = int(part.replication)
+        self._stats["local_entries"] = mstats["local_entries"]
+        self._stats["residual_entries"] = mstats["residual_entries"]
+        tot = mstats["local_entries"] + mstats["residual_entries"]
+        self._stats["local_fraction"] = (
+            mstats["local_entries"] / tot if tot else 1.0)
+        _REGISTRY_OBS.gauge("executor.replication",
+                            executor=self.name).set(part.replication)
+        _REGISTRY_OBS.gauge("executor.local_fraction",
+                            executor=self.name).set(
+                                self._stats["local_fraction"])
+
+    def _coded_dispatch(self, xt, yt, plan, metric, shape, zero_diag,
+                        mesh, shard_axes, rect: bool,
+                        workload: str = "pairs"):
+        group, S, rank = _compat.shard_group(mesh, shard_axes)
+        part = self.partition_coded(plan, S)
+        groups = self._coded_groups_for(plan, part, rect)
+        sendmap, srcmap, mstats = self._coded_maps_for(
+            plan, groups, part, shape, zero_diag)
+        self._count("coded")
+        self._note_coded(part, mstats)
+        if _obs_config.ENABLED:
+            # identical ring accounting to ``coded_assembly_model``:
+            # residual lanes x itemsize x (S-1)/S per shard
+            _d, isz = _row_bytes(xt)
+            frac = (S - 1) / S if S > 1 else 0.0
+            per_shard = int(sendmap.shape[1] * sendmap.shape[2]
+                            * isz * frac)
+            self._reconcile(
+                plan, workload, xt,
+                measured_slots=_group_valid_slots(
+                    plan, ("coded", S, part.replication, rect), groups,
+                    count_y=rect),
+                replication=float(part.replication),
+                assembled_bytes=S * per_shard,
+                local_bytes=int(mstats["local_entries"]) * isz,
+                residual_bytes=int(mstats["residual_entries"]) * isz,
+                meta={"num_shards": S,
+                      "replication": int(part.replication),
+                      "assembly_bytes_per_shard": per_shard,
+                      "lane_max": mstats["lane_max"]})
+        key = f"coded:{S}:{part.replication}:{rect}:{rank}"
+        slices = _rank_slices(key, plan, xt, groups, rank, 4, yt)
+        send_r, src_r = uploaded(
+            f"{key}:maps:{shape[0]}x{shape[1]}:{zero_diag}", plan, xt,
+            lambda dev: (torch.as_tensor(sendmap[rank], device=dev).long(),
+                         torch.as_tensor(srcmap[rank], device=dev).long()),
+            ytable=yt)
+        n2x, n2y = _table_norms(xt, yt, metric)
+        vloc = _with_zero_slot([
+            _finish_rect_blocks(fused_gather_gram_rect(xt, yt, *s), *s,
+                                n2x, n2y, metric) for s in slices])
+        # coded combining: replicas serve locally through the source map;
+        # ONLY the residual lanes cross ranks, in one all-to-all
+        recv = _compat.all_to_all(vloc[send_r], group)          # (S, E)
+        mine = torch.cat([vloc, recv.reshape(-1)])[src_r]      # (rb, my)
+        # every rank returns the whole matrix: gather the row slices
+        rows = _compat.all_gather(mine.reshape(-1), group)
+        return rows.view(-1, shape[1])[:shape[0]]
+
+    # -- protocol ----------------------------------------------------------
+    def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
+                  use_kernel=False, device=None):
+        from .allpairs import assemble_pair_matrix_bucketed
+        x = as_table(x, device)
+        self._count("calls")
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or plan.num_reducers == 0:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "empty_plan")
+            self._reconcile(plan, "pairs", x,
+                            measured_slots=_bucket_valid_slots(plan))
+            per_bucket = run_reducers_bucketed(x, plan, reducer_fn,
+                                               combine="buckets",
+                                               device=x.device)
+            return assemble_pair_matrix_bucketed(per_bucket, m,
+                                                 device=x.device)
+        return self._coded_dispatch(x, x, plan, metric, (m, m), True, mesh,
+                                    None, rect=False, workload="pairs")
+
+    def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
+                use_kernel=False, device=None):
+        from .allpairs import assemble_x2y_matrix_bucketed
+        xt, yt = _as_tables(tables, device)
+        self._count("calls")
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or plan.num_reducers == 0:
+            self._count_fallback(
+                "non_gram_reducer" if metric is None else "empty_plan")
+            self._reconcile(plan, "x2y", xt,
+                            measured_slots=_bucket_valid_slots(plan))
+            per_bucket = run_reducers_x2y_bucketed(
+                (xt, yt), plan, reducer_fn, combine="buckets",
+                device=xt.device)
+            return assemble_x2y_matrix_bucketed(per_bucket, shape,
+                                                device=xt.device)
+        return self._coded_dispatch(xt, yt, plan, metric, tuple(shape),
+                                    False, mesh, None, rect=True,
+                                    workload="x2y")
+
+
+def coded_assembly_model(plan, num_shards: int, replication: int, m: int,
+                         *, itemsize: int = 4) -> dict:
+    """Analytic bytes of the coded combining stage at replication ``r`` —
+    host-only (builds the real send/recv maps, runs nothing).
+
+    ``assembly_bytes_per_shard`` uses the reference's ring accounting
+    (result bytes x (S-1)/S for the all-to-all), so model and measured
+    numbers are directly comparable;
+    ``uncoded_assembly_bytes_per_shard`` is the sharded executor's
+    all-gather of the full primary Gram stacks under the same accounting.
+    """
+    S = int(num_shards)
+    r = min(int(replication), S)
+    part = partition_plan(plan, S, replication=r)
+    sq = _stacked_groups(plan, part, rows_by_shard=part.replica_rows)
+    groups = [(i, k, i, k, rows) for i, k, rows in sq]
+    rb = -(-int(m) // S)
+    sendmap, _srcmap, st = _coded_maps(groups, (int(m), int(m)), rb, True)
+    frac = (S - 1) / S if S > 1 else 0.0
+    primary = _stacked_groups(plan, part)
+    gram_entries = sum(int(np.prod(i.shape[:2])) * i.shape[2] ** 2
+                       for i, _k, _r in primary)
+    return {
+        "replication": r,
+        "num_shards": S,
+        "local_entries": st["local_entries"],
+        "residual_entries": st["residual_entries"],
+        "local_fraction": (
+            st["local_entries"]
+            / max(st["local_entries"] + st["residual_entries"], 1)),
+        "lane_max": st["lane_max"],
+        "lane_fill": st["lane_fill"],
+        "assembly_bytes_per_shard": int(sendmap.shape[1] * sendmap.shape[2]
+                                        * itemsize * frac),
+        "uncoded_assembly_bytes_per_shard": int(gram_entries * itemsize
+                                                * frac),
+        "replica_slots": [int(x) for x in part.replica_slots],
+    }
+
+
+def choose_replication(plan, num_shards: int, m: int, d: int, *,
+                       itemsize: int = 4,
+                       candidates=None) -> tuple[int, list[dict]]:
+    """Auto-``r``: sweep the replication-vs-communication frontier and
+    pick the knee for ``num_shards`` shards.
+
+    Total cluster communication at replication r =
+    ``r x shipped input bytes`` (every replica shard receives its
+    sub-plan's input rows: the paper's map->reduce cost scales linearly
+    with r) ``+ S x assembly bytes per shard`` (falls with r as replicas
+    serve locally).  The knee is the argmin of that total — past it,
+    extra replicas ship more input rows than they save in assembly.
+    Returns ``(best_r, frontier)`` with one model row per candidate,
+    each including the total and both terms.
+    """
+    S = int(num_shards)
+    if candidates is None:
+        candidates = []
+        r = 1
+        while r <= S:
+            candidates.append(r)
+            r *= 2
+    shipped_bytes = float(plan.comm_cost) * d * itemsize
+    frontier = []
+    for r in sorted(set(min(int(c), S) for c in candidates)):
+        rec = coded_assembly_model(plan, S, r, m, itemsize=itemsize)
+        rec["shipped_bytes"] = r * shipped_bytes
+        rec["total_comm_bytes"] = (rec["shipped_bytes"]
+                                   + S * rec["assembly_bytes_per_shard"])
+        frontier.append(rec)
+    best = min(frontier, key=lambda rec: rec["total_comm_bytes"])
+    return best["replication"], frontier
+
+
+# ---------------------------------------------------------------------------
 # default registry instances
 # ---------------------------------------------------------------------------
 register_executor(DenseExecutor())
 register_executor(BucketedExecutor())
 register_executor(FusedExecutor())
+register_executor(ShardedExecutor())
+register_executor(CodedExecutor())

@@ -60,16 +60,17 @@ def skew_join(
     :class:`~repro_torch.mapreduce.executors.Executor` instance) and
     execution dispatches through its ``run_x2y``; outputs are identical
     across executors."""
-    from .allpairs import _x2y_plan_for
+    from .allpairs import _mesh_pad, _x2y_plan_for
     from .executors import get_executor
     ex = get_executor(executor)
     xt, yt = _as_tables((x_vals, y_vals), device)
     mx, my = xt.shape[0], yt.shape[0]
+    pad = _mesh_pad(ex, mesh)
     if schema is None:
         wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)
         wy_ = np.full(my, 1.0) if wy is None else np.asarray(wy, float)
         schema = plan_x2y(wx_, wy_, q)
-    plan = _x2y_plan_for(schema, mx, pad_reducers_to=1, pad_slots_to=1)
+    plan = _x2y_plan_for(schema, mx, pad_reducers_to=pad, pad_slots_to=1)
     out = ex.run_x2y((xt, yt), plan, join_block, (mx, my), mesh=mesh,
                      device=xt.device)
     return out, schema

@@ -139,8 +139,11 @@ class PairwiseService:
     sizes); the service plans a mapping schema — repeated weight profiles
     hit ``repro_torch.core.PLAN_CACHE`` and skip planning — and executes it
     on a private instance of a registry executor ("dense" / "bucketed" /
-    "fused" / "streaming") on ``device`` (``None`` means CUDA and raises
-    without a card).
+    "fused" / "sharded" / "coded" / "streaming") on ``device`` (``None``
+    means CUDA and raises without a card).  ``mesh`` is the
+    ``torch.distributed`` process group the sharded and coded executors
+    run over (``None``: the default group if one is initialised, else one
+    shard); their responses add ``info["sharded"]`` / ``info["coded"]``.
     """
 
     def __init__(self, q: float, *, metric: str = "dot", mesh=None,
@@ -148,9 +151,6 @@ class PairwiseService:
                  use_kernel: bool = False, tenant: str = "default",
                  device=None):
         from repro_torch.mapreduce import make_executor
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded execution over a mesh is not ported yet")
         self.q = q
         self.metric = metric
         self.mesh = mesh
@@ -274,6 +274,19 @@ class PairwiseService:
         _OBS_REGISTRY.histogram("serve.request_seconds",
                                 executor=self.executor, workload=workload,
                                 tenant=self.tenant).observe(dt)
+        ex_stats = self._executor.stats()
+        if "num_shards" in ex_stats:             # sharded-executor telemetry
+            info["sharded"] = {
+                "num_shards": ex_stats["num_shards"],
+                "balance_factor": ex_stats["balance_factor"],
+                "fallbacks": ex_stats["fallbacks"],
+            }
+        if "replication" in ex_stats:            # coded-executor telemetry
+            info["coded"] = {
+                "replication": ex_stats["replication"],
+                "local_fraction": ex_stats["local_fraction"],
+                "residual_entries": ex_stats["residual_entries"],
+            }
         return info
 
     def similarity(self, x, weights=None):
@@ -286,8 +299,8 @@ class PairwiseService:
                        executor=self.executor, tenant=self.tenant):
             sims, plan, _schema = pairwise_similarity(
                 x, q=self.q, weights=weights, metric=self.metric,
-                executor=self._executor, use_kernel=self.use_kernel,
-                device=self.device)
+                mesh=self.mesh, executor=self._executor,
+                use_kernel=self.use_kernel, device=self.device)
             if sims.is_cuda:
                 torch.cuda.synchronize(sims.device)
         return sims, self._info(plan, time.perf_counter() - t0, snap,
@@ -303,8 +316,8 @@ class PairwiseService:
                        executor=self.executor, tenant=self.tenant):
             sims, plan, _schema = some_pairs_similarity(
                 x, pairs, q=self.q, weights=weights, metric=self.metric,
-                executor=self._executor, use_kernel=self.use_kernel,
-                device=self.device)
+                mesh=self.mesh, executor=self._executor,
+                use_kernel=self.use_kernel, device=self.device)
             if sims.is_cuda:
                 torch.cuda.synchronize(sims.device)
         return sims, self._info(plan, time.perf_counter() - t0, snap,
@@ -324,8 +337,8 @@ class PairwiseService:
                        executor=self.executor, tenant=self.tenant):
             sims, plan, _schema = x2y_similarity(
                 x, y, q=self.q, wx=wx, wy=wy, metric=self.metric,
-                executor=self._executor, use_kernel=self.use_kernel,
-                device=self.device)
+                mesh=self.mesh, executor=self._executor,
+                use_kernel=self.use_kernel, device=self.device)
             if sims.is_cuda:
                 torch.cuda.synchronize(sims.device)
         return sims, self._info(plan, time.perf_counter() - t0, snap,
@@ -392,7 +405,8 @@ class PairwiseService:
             blk = self._executor.run_block(
                 self._block_table, self._block_sparse,
                 _block_fn_x2y(self.metric), int(i0), int(i1), int(j0),
-                int(j1), use_kernel=self.use_kernel, device=self.device)
+                int(j1), mesh=self.mesh, use_kernel=self.use_kernel,
+                device=self.device)
             if blk.is_cuda:
                 torch.cuda.synchronize(blk.device)
         dt = time.perf_counter() - t0
@@ -456,7 +470,7 @@ class PairwiseService:
         with _obs_span("request", workload="load_table",
                        executor=self.executor, tenant=self.tenant):
             sims = ex.run_pairs(xt, plan, self._reducer_fn(), m,
-                                use_kernel=self.use_kernel,
+                                mesh=self.mesh, use_kernel=self.use_kernel,
                                 device=self.device)
             if sims.is_cuda:
                 torch.cuda.synchronize(sims.device)

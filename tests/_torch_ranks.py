@@ -1,0 +1,132 @@
+"""Rank programs for the port's multi-process tests.
+
+``repro_torch.compat.run_local_group`` spawns each rank as a fresh process
+that imports this module by name, so it imports only the port: JAX stays in
+the parent test, which holds what the ranks return against the reference.
+"""
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.pairwise import fused_gather_gram as fgg
+from repro_torch.mapreduce import executors as port_ex
+from repro_torch.mapreduce import (make_executor, pairwise_similarity,
+                                   x2y_similarity)
+from repro_torch.obs import LEDGER, REGISTRY
+from repro_torch.serve import PairwiseService
+
+
+def _coded_ledger(before: float) -> dict:
+    """The last coded ledger record and the all-to-all bytes sent since
+    ``before``."""
+    rec = [r for r in LEDGER.records() if r.executor == "coded"][-1]
+    return {"measured_over_predicted": rec.measured_over_predicted,
+            "replication": rec.replication, "anomaly": rec.anomaly,
+            "assembled_bytes": rec.assembled_bytes,
+            "assembly_bytes_per_shard": rec.meta["assembly_bytes_per_shard"],
+            "all_to_all_bytes": REGISTRY.counter_total(
+                "collective.bytes", op="all_to_all") - before}
+
+
+def cpu_paths(rank, world, name, pairs_cases, x2y_case):
+    """Executor ``name`` ("sharded", or "coded" at its default r=2) on the
+    CPU: A2A on each ``(w, x)`` of ``pairs_cases`` over the default group
+    (``mesh=None``), then X2Y on ``x2y_case`` with the group passed as
+    ``mesh``."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = {"pairs": {}}
+    for kind, (w, x) in pairs_cases.items():
+        ex = make_executor(name)
+        before = REGISTRY.counter_total("collective.bytes", op="all_to_all")
+        s, _, _ = pairwise_similarity(x, q=1.0, weights=w, executor=ex,
+                                      device="cpu")
+        out["pairs"][kind] = {"sims": s.numpy(), "stats": ex.stats()}
+        if name == "coded":
+            out["pairs"][kind]["ledger"] = _coded_ledger(before)
+    wx, wy, x, y = x2y_case
+    ex = make_executor(name)
+    s, _, _ = x2y_similarity(x, y, q=1.0, wx=wx, wy=wy, executor=ex,
+                             mesh=dist.group.WORLD, device="cpu")
+    out["x2y"] = {"sims": s.numpy(), "stats": ex.stats()}
+    svc = PairwiseService(q=1.0, executor=name, mesh=dist.group.WORLD,
+                          device="cpu")
+    s, info = svc.x2y(x, y, wx, wy)
+    out["service"] = {"sims": s.numpy(),
+                      **{k: info[k] for k in ("sharded", "coded")
+                         if k in info}}
+    return out
+
+
+def fail_on_rank_one(rank, world):
+    """Rank 1 raises; rank 0 returns."""
+    if rank == 1:
+        raise ValueError("rank one gives up")
+    return rank
+
+
+class KernelSpy:
+    """Records every launch of the two Gram kernels the executors make,
+    with its operands and output, to hold each against its plain version
+    afterwards."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = (port_ex.fused_gather_gram,
+                      port_ex.fused_gather_gram_rect)
+
+    def __enter__(self):
+        sq, rect = self._orig
+
+        def spy_sq(*args):
+            out = sq(*args)
+            self.calls.append(("fused_gather_gram", args, out))
+            return out
+
+        def spy_rect(*args):
+            out = rect(*args)
+            self.calls.append(("fused_gather_gram_rect", args, out))
+            return out
+        port_ex.fused_gather_gram = spy_sq
+        port_ex.fused_gather_gram_rect = spy_rect
+        return self
+
+    def __exit__(self, *exc):
+        port_ex.fused_gather_gram, port_ex.fused_gather_gram_rect = self._orig
+
+    def max_errs(self) -> dict:
+        """Per kernel: launches and the largest difference from the plain
+        version on the same operands (asserted within fp32 tolerance)."""
+        plain = {"fused_gather_gram": fgg.fused_gather_gram_ref,
+                 "fused_gather_gram_rect": fgg.fused_gather_gram_rect_ref}
+        out = {}
+        for name, args, got in self.calls:
+            want = plain[name](*args)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+            n, err = out.get(name, (0, 0.0))
+            out[name] = (n + 1, max(err, float((got - want).abs().max())
+                                    if got.numel() else 0.0))
+        return out
+
+
+def cuda_paths(rank, world, w, x, wx, wy, xx, yy):
+    """Sharded and coded A2A and sharded X2Y on ``cuda:0`` over a gloo
+    group: every kernel launch held against its plain version, and the
+    ``nvcc`` runs of this process."""
+    torch.set_num_threads(1)
+    xt = torch.from_numpy(x).cuda()
+    out = {}
+    with KernelSpy() as spy:
+        for name in ("sharded", "coded"):
+            s, _, _ = pairwise_similarity(xt, q=1.0, weights=w,
+                                          executor=name)
+            out[name] = s.cpu().numpy()
+        s, _, _ = x2y_similarity(torch.from_numpy(xx).cuda(),
+                                 torch.from_numpy(yy).cuda(), q=1.0, wx=wx,
+                                 wy=wy, executor="sharded")
+        out["sharded_x2y"] = s.cpu().numpy()
+    torch.cuda.synchronize()
+    out["kernels"] = spy.max_errs()
+    out["launches"] = _build.launch_counts()
+    out["builds"] = _build.build_counts()
+    return out

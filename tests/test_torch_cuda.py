@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 ``fused_gather_gram`` (square), ``fused_gather_gram_rect`` (X2Y),
 ``pairwise_gram`` (the ``use_kernel=True`` Gram block), ``flash_attention``
-and ``ssd_scan`` (the LM prefill), and the paths that run them.
+and ``ssd_scan`` (the LM prefill), and the paths that run them, the sharded
+and coded executors' included (in one process, and on two gloo ranks
+spawned on the one card).
 
 Run on a machine with an NVIDIA card and nvcc:
 
@@ -48,7 +50,10 @@ from repro_torch.kernels.flash.ref import mha_ref
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ssd import ssd_scan, ssd_scan_heads
 from repro_torch.models import RuntimeFlags, build_model
+from repro_torch.compat import run_local_group
 from repro_torch.serve import BatchedServer, PairwiseService, Request
+
+import _torch_ranks
 
 pytestmark = pytest.mark.gpu
 
@@ -698,6 +703,73 @@ def test_warmed_first_edit_builds_no_library(cuda):
     assert info["dirty_reducers"] >= 1
     assert _build.build_counts() == builds
     assert port_mr.table_signatures() == sigs
+
+
+# ------------------------------------------------ sharded and coded paths
+def _zipf_case(seed=0, m=300, d=64):
+    rng = np.random.default_rng(seed)
+    w = np.clip(rng.zipf(1.6, m) / 32.0, 0.01, 0.45)
+    return w, rng.normal(size=(m, d)).astype(np.float32)
+
+
+def _skew_case(seed=1, mx=400, my=40, d=64):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.01, 0.1, mx), rng.uniform(0.2, 0.45, my),
+            rng.normal(size=(mx, d)).astype(np.float32),
+            rng.normal(size=(my, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("executor", ["sharded", "coded"])
+def test_one_shard_matches_fused_on_the_card(cuda, executor):
+    """One shard (no process group): every Gram launch against its plain
+    version, the matrices against the fused executor's."""
+    w, x = _zipf_case()
+    xt = torch.from_numpy(x).to(cuda)
+    wx, wy, xx, yy = _skew_case()
+    X, Y = torch.from_numpy(xx).to(cuda), torch.from_numpy(yy).to(cuda)
+    with _torch_ranks.KernelSpy() as spy:
+        got = port_mr.pairwise_similarity(xt, q=1.0, weights=w,
+                                          executor=executor)[0]
+        got_x2y = port_mr.x2y_similarity(X, Y, q=1.0, wx=wx, wy=wy,
+                                         executor=executor)[0]
+    errs = spy.max_errs()
+    rect = "fused_gather_gram_rect"
+    assert set(errs) == ({rect} if executor == "coded"
+                         else {"fused_gather_gram", rect}), errs
+    want = port_mr.pairwise_similarity(xt, q=1.0, weights=w,
+                                       executor="fused")[0]
+    want_x2y = port_mr.x2y_similarity(X, Y, q=1.0, wx=wx, wy=wy,
+                                      executor="fused")[0]
+    assert got.is_cuda and got_x2y.is_cuda
+    torch.testing.assert_close(got, want, **FP32)
+    torch.testing.assert_close(got_x2y, want_x2y, **FP32)
+
+
+def test_two_gloo_ranks_on_the_card(cuda):
+    """Two gloo ranks spawned on the one card: every launch in each rank
+    against its plain version, each rank's matrices against the fused
+    ones, and no rank runs nvcc (the libraries are built first)."""
+    _build.build_all(("fused_gather_gram", "fused_gather_gram_rect"))
+    w, x = _zipf_case()
+    skew = _skew_case()
+    results = run_local_group(_torch_ranks.cuda_paths, 2, w, x, *skew,
+                              timeout_s=120.0)
+    xt = torch.from_numpy(x).to(cuda)
+    want = port_mr.pairwise_similarity(xt, q=1.0, weights=w,
+                                       executor="fused")[0].cpu()
+    wx, wy, xx, yy = skew
+    want_x2y = port_mr.x2y_similarity(
+        torch.from_numpy(xx).to(cuda), torch.from_numpy(yy).to(cuda),
+        q=1.0, wx=wx, wy=wy, executor="fused")[0].cpu()
+    for res in results:
+        assert sum(res["builds"].values()) == 0, res["builds"]
+        assert set(res["kernels"]) == {"fused_gather_gram",
+                                       "fused_gather_gram_rect"}
+        for name in ("sharded", "coded"):
+            torch.testing.assert_close(torch.from_numpy(res[name]), want,
+                                       **FP32)
+        torch.testing.assert_close(torch.from_numpy(res["sharded_x2y"]),
+                                   want_x2y, **FP32)
 
 
 # ------------------------------------------------------ LM prefill kernels

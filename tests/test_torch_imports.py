@@ -45,7 +45,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "models.layers", "models.mamba", "models.moe",
                 "models.blocks", "models.lm", "serve.engine", "stream",
                 "stream.base", "stream.delta", "stream.executor",
-                "stream.incremental", "stream.x2y"):
+                "stream.incremental", "stream.x2y", "compat"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -104,7 +104,8 @@ def test_runners_need_a_card_by_default(no_cuda, runner):
         getattr(port_mr, runner)(_table(), plan, _block_fn("dot", False))
 
 
-@pytest.mark.parametrize("executor", ["dense", "bucketed", "fused"])
+@pytest.mark.parametrize("executor", ["dense", "bucketed", "fused",
+                                      "sharded", "coded"])
 def test_executors_need_a_card_by_default(no_cuda, executor):
     plan = port_mr.build_plan(plan_a2a(W, 1.0))
     ex = port_mr.make_executor(executor)

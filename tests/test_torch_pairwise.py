@@ -221,9 +221,9 @@ def test_registry():
     # "streaming" registers itself on its first lookup, which another test
     # in the same process may already have made
     assert set(port_mr.list_executors()) - {"streaming"} == \
-        {"bucketed", "dense", "fused"}
+        {"bucketed", "dense", "fused", "sharded", "coded"}
     with pytest.raises(ValueError):
-        port_mr.get_executor("sharded")
+        port_mr.get_executor("warp-drive")
     a, b = port_mr.make_executor("fused"), port_mr.make_executor("fused")
     assert a is not b and a.stats() == {"calls": 0, "kernel": 0,
                                         "streamed": 0, "fallbacks": 0}
