@@ -51,6 +51,23 @@ just before it and read just after):
   every rank's matrices against this process's fused ones, the coded
   ledger against the all-to-all's bytes, and no rank running nvcc
   (phase 20);
+* ``mesh=`` on the single-program executors and the engine's dry run
+  (phase 21): on an in-process NCCL group of one rank, dense and bucketed
+  (``use_kernel=True`` -> ``pairwise_gram``) and fused (->
+  ``fused_gather_gram``) on the main path's table, each matrix against
+  ``mesh=None`` and each launch against its plain version; on phase 20's
+  4 gloo ranks, fused A2A at m=2048 and the streaming service
+  (``load_table`` and 4 edits; ``fused_gather_gram`` cold,
+  ``pairwise_gram`` per delta bucket) over the group against this
+  process's one-device matrices; then ``repro_torch.launch.dryrun_engine``
+  at the reference's defaults (m=1024, d=2048, q=32, with and without
+  Zipf sizes, bf16 tables): its stages on the one-rank group, the coded
+  frontier on the 4 gloo ranks (S=4, cut from the reference's 16), every
+  row printed as the reference prints it plus device ms and peak
+  allocation; the bucketed path's peak allocation must exceed the fused
+  path's by the largest gathered block less the fused path's fp32 blocks,
+  the coded measured bytes must equal the model on every rank, and the
+  planner-vs-naive comm ratio the plans';
 * LM serving on jamba-1.5-large-398b at its published widths with the
   depth cut to 3 layers (attention + dense FFN, Mamba + MoE, Mamba +
   dense; 12.37 B parameters made on the card from seed 0): the prefill ->
@@ -81,7 +98,8 @@ x·xᵀ / x·yᵀ, and check that the first edit after a warmed ``load_table``
 builds no library and brings no new table signature.  Phases 19-20 follow
 them: kernel ms per stacked group of each rank's slice, host seconds of
 the partition, stacking and maps (``_coded_maps`` included), collective ms
-per rank, the coded path's local fraction and the balance factor.  Flash
+per rank, the coded path's local fraction and the balance factor; phase 21
+follows phase 20 (its gloo part runs in phase 20's spawn).  Flash
 is timed beside SDPA in the same call; flash and SSD with their ms per
 launch, share of bound and achieved TFLOP/s.
 Any failed check raises, so the exit code is non-zero; without a CUDA
@@ -126,6 +144,7 @@ from repro_torch.kernels.flash.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.pairwise import fused_gather_gram as fgg  # noqa: E402
 from repro_torch.kernels.pairwise import pairwise as pg  # noqa: E402
 from repro_torch.mapreduce import (  # noqa: E402
+    build_plan,
     make_executor,
     pairwise_similarity,
     skew_join,
@@ -145,6 +164,19 @@ from repro_torch.mapreduce.engine import (  # noqa: E402
 )
 from repro_torch.obs import LEDGER, REGISTRY  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.launch import dryrun_engine as dryrun  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    HW,
+    PEAK_BF16_TENSOR,
+    PEAK_FP32_CUDA_CORES,
+    bound,
+    bucket_work,
+    pairwise_bucket_work,
+    pairwise_work,
+    rect_bucket_work,
+    rect_work,
+    work_model,
+)
 from repro_torch.kernels.ssd.ref import ssd_scan_chunked  # noqa: E402
 from repro_torch.kernels.ssd.ssd import ssd_scan_heads  # noqa: E402
 from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
@@ -180,12 +212,6 @@ LM_S_FP32, LM_S_BF16, LM_S_LONG = 2048, 4096, 32768
 LM_FP32 = dict(rtol=2e-4, atol=2e-4)
 LM_BF16 = dict(rtol=2e-2, atol=2e-3)
 LM_LONG_HEADS = (0, 31, 63)   # flash heads checked at 32k (KV heads 0, 3, 7)
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_FP32_CUDA_CORES = 67e12
-PEAK_BF16_TENSOR = 989e12
-PEAK_HBM = 3.35e12
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -452,33 +478,6 @@ def phase_serving() -> list:
     return walls
 
 
-def bucket_work(x, b) -> dict:
-    """Operations and bytes one bucket's fused_gather_gram launch needs:
-    products over the valid pairs i <= j only (the Gram block is
-    symmetric: n (n + 1) / 2 dot products of d multiply-adds for n valid
-    slots); idx (int32) and mask (uint8) read once, every (R, L, L) fp32
-    output entry written once (the table is counted once per request, in
-    ``work_model``)."""
-    n = b.mask.sum(axis=1).astype(np.int64)
-    return {"ops": x.shape[1] * int((n * (n + 1)).sum()),
-            "bytes": b.R * b.width * 5 + b.R * b.width * b.width * 4}
-
-
-def work_model(x, plan) -> dict:
-    """The same over one request's launches, with the table read once."""
-    works = [bucket_work(x, b) for b in plan.buckets]
-    return {"ops": sum(w["ops"] for w in works),
-            "bytes": x.shape[0] * x.shape[1] * x.element_size()
-            + sum(w["bytes"] for w in works)}
-
-
-def bound(work: dict, peak_ops: float) -> tuple:
-    t_ops = work["ops"] / peak_ops * 1e3
-    t_bytes = work["bytes"] / PEAK_HBM * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def profile_request(fn, label: str) -> dict:
     """Device time of one warm request ``fn()`` by kernel (torch.profiler),
     and the device's idle share of that request's wall time."""
@@ -527,7 +526,8 @@ def phase_timing(x, schema, plan) -> dict:
         # request), and beside it the table bytes the kernel's schedule
         # stages from L2: modelled from the plan (gather_bytes), not
         # measured on the card
-        b_ms, b_by = bound(bucket_work(x, b), PEAK_FP32_CUDA_CORES)
+        b_ms, b_by = bound(bucket_work(b, x.shape[1]),
+                           PEAK_FP32_CUDA_CORES)
         staged = fgg.gather_bytes(b.mask, x.shape[1], x.element_size())
         tot["modelled_gather_bytes"] = (
             tot.get("modelled_gather_bytes", 0) + staged)
@@ -645,29 +645,6 @@ def check_rect_buckets(x, y, plan, what: str) -> dict:
             f"R={b.R}: ok (running max fp32 {errs['float32']:.3e}, bf16 "
             f"{errs['bfloat16']:.3e})")
     return errs
-
-
-def rect_bucket_work(x, b) -> dict:
-    """Operations and bytes one bucket's rect launch needs: products over
-    valid (x, y) pairs only, 2 d per pair; idx (int32) and mask (uint8) of
-    both sides read once, every (R, Lx, Ly) fp32 output entry written once
-    (the tables are counted once per request, in ``rect_work``)."""
-    nx = b.mask.sum(axis=1).astype(np.int64)
-    ny = b.ymask.sum(axis=1).astype(np.int64)
-    return {"ops": 2 * x.shape[1] * int((nx * ny).sum()),
-            "bytes": b.R * (b.width + b.ywidth) * 5
-            + b.R * b.width * b.ywidth * 4}
-
-
-def rect_work(x, y, plan) -> dict:
-    """The same over one request's rect launches: products over valid (x,
-    y) pairs only; both tables read once, idx (int32) and mask (uint8) of
-    both sides read once, every (R, Lx, Ly) fp32 output entry written
-    once."""
-    works = [rect_bucket_work(x, b) for b in plan.buckets]
-    return {"ops": sum(w["ops"] for w in works),
-            "bytes": (x.shape[0] + y.shape[0]) * x.shape[1] * x.element_size()
-            + sum(w["bytes"] for w in works)}
 
 
 def x2y_host(kind: str):
@@ -918,7 +895,8 @@ def time_rect(x, y, plan) -> dict:
         for k, v in (("kernel_fp32", k32), ("kernel_bf16", k16),
                      ("plain", plain), ("bmm", bmm)):
             tot[k] += v
-        b_ms, b_by = bound(rect_bucket_work(x, b), PEAK_FP32_CUDA_CORES)
+        b_ms, b_by = bound(rect_bucket_work(b, x.shape[1]),
+                           PEAK_FP32_CUDA_CORES)
         staged = fgg.rect_gather_bytes(b.mask, b.ymask, x.shape[1],
                                        x.element_size())
         tot["modelled_gather_bytes"] += staged
@@ -951,30 +929,15 @@ def time_pairwise_gram(x, plan) -> dict:
         for k, v in (("kernel_fp32", k32), ("kernel_bf16", k16),
                      ("plain", plain), ("bmm", bmm)):
             tot[k] += v
-        b_ms, b_by = bound(pairwise_bucket_work(x, b), PEAK_FP32_CUDA_CORES)
+        b_ms, b_by = bound(
+            pairwise_bucket_work(b, x.shape[1], x.element_size()),
+            PEAK_FP32_CUDA_CORES)
         rows.append({"width": b.width, "R": b.R, "kernel_fp32_ms": k32,
                      "kernel_bf16_ms": k16, "plain_ms": plain,
                      "bmm_ms": bmm, "bound_ms": b_ms, "bound_by": b_by,
                      "ratio_to_bmm": k32 / bmm, "bound_share": b_ms / k32})
     tot["ratio_to_bmm"] = tot["kernel_fp32"] / tot["bmm"]
     return {"buckets": rows, "totals": tot}
-
-
-def pairwise_bucket_work(x, b) -> dict:
-    """Operations and bytes of one bucket's pairwise_gram launch on the
-    self-Gram route: the gathered (R, L, d) blocks with themselves, the
-    symmetric products i <= j only (L (L + 1) / 2 dot products of d
-    multiply-adds per block); the blocks are read once and the (R, L, L)
-    fp32 output is written once."""
-    d, item = x.shape[1], x.element_size()
-    return {"ops": b.R * b.width * (b.width + 1) * d,
-            "bytes": b.R * b.width * d * item + b.R * b.width * b.width * 4}
-
-
-def pairwise_work(x, plan) -> dict:
-    """The same over every bucket of one request."""
-    works = [pairwise_bucket_work(x, b) for b in plan.buckets]
-    return {k: sum(w[k] for w in works) for k in ("ops", "bytes")}
 
 
 def fgg_buckets(timing, timing_new) -> list:
@@ -1131,7 +1094,8 @@ def phase_some_pairs(x, x_np, w) -> dict:
                for i, mk, _ in arrays)
     plain_ms = sum(time_cuda(lambda: fgg.fused_gather_gram_ref(x, i, mk),
                              3, warmup=1) for i, mk, _ in arrays)
-    b_ms, b_by = bound(work_model(x, plan), PEAK_FP32_CUDA_CORES)
+    b_ms, b_by = bound(work_model(plan, *x.shape, x.element_size()),
+                       PEAK_FP32_CUDA_CORES)
     log(f"phase 16 some-pairs m={M} d={D}: {len(pairs)} of {M * (M - 1) // 2}"
         f" pairs required; plan_some_pairs {schema.algorithm}, "
         f"{plan.num_reducers} reducers, buckets "
@@ -1440,27 +1404,37 @@ GROUP_TIMEOUT_S = 120.0             # every collective, and each spawn
 
 
 class KernelSpy:
-    """Records each launch of the two Gram kernels the executors make (its
-    operands and output) to hold it against its plain version afterwards,
-    which launches nothing."""
+    """Records each launch of the three Gram kernels the executors make
+    (its operands and output) to hold it against its plain version
+    afterwards, which launches nothing."""
 
-    PLAIN = {"fused_gather_gram": "fused_gather_gram_ref",
-             "fused_gather_gram_rect": "fused_gather_gram_rect_ref"}
+    # kernel -> (module the executors call its wrapper through, wrapper's
+    # name there, plain version's name in the kernel's module)
+    TARGETS = {
+        "fused_gather_gram": (port_ex, "fused_gather_gram",
+                              (fgg, "fused_gather_gram_ref")),
+        "fused_gather_gram_rect": (port_ex, "fused_gather_gram_rect",
+                                   (fgg, "fused_gather_gram_rect_ref")),
+        "pairwise_gram": (pg, "pairwise_gram_batched",
+                          (pg, "pairwise_gram_ref"))}
 
     def __enter__(self):
         self.calls = []
-        self._orig = {n: getattr(port_ex, n) for n in self.PLAIN}
+        self._orig = {k: getattr(mod, attr)
+                      for k, (mod, attr, _p) in self.TARGETS.items()}
         for name, fn in self._orig.items():
             def spy(*args, _name=name, _fn=fn):
                 out = _fn(*args)
                 self.calls.append((_name, args, out))
                 return out
-            setattr(port_ex, name, spy)
+            mod, attr, _p = self.TARGETS[name]
+            setattr(mod, attr, spy)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._orig.items():
-            setattr(port_ex, name, fn)
+            mod, attr, _p = self.TARGETS[name]
+            setattr(mod, attr, fn)
 
     def check(self, what: str) -> dict:
         """Every recorded launch against its plain version on the same
@@ -1468,7 +1442,8 @@ class KernelSpy:
         torch.cuda.synchronize()
         out = {}
         for name, args, got in self.calls:
-            want = getattr(fgg, self.PLAIN[name])(*args)
+            mod, plain = self.TARGETS[name][2]
+            want = getattr(mod, plain)(*args)
             torch.testing.assert_close(got, want, **FP32,
                                        msg=lambda m: f"{what} {name}: {m}")
             rec = out.setdefault(name, {"launches": 0, "max_abs_err": 0.0})
@@ -1576,6 +1551,24 @@ def group_times(x, y, groups, rank: int, rect: bool) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+@contextlib.contextmanager
+def one_rank_nccl():
+    """An in-process NCCL group of one rank, the default group for the
+    block (rendezvous through a file store in a temporary directory, so
+    no port is opened)."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            assert dist.get_backend(dist.group.WORLD) == "nccl"
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+
+
 def phase_sharded_one_rank(x, x_np, w, schema, skew) -> dict:
     """Phase 19: an in-process NCCL group of one rank (rendezvous through a
     file store in a temporary directory, so no port is opened).  Sharded
@@ -1585,38 +1578,28 @@ def phase_sharded_one_rank(x, x_np, w, schema, skew) -> dict:
     ``x2y_similarity(mesh=group)``: each matrix against the fused
     executor's on the same inputs, each launch against its plain version,
     one launch per stacked group and nothing else."""
-    import torch.distributed as dist
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
-            rank=0, world_size=1,
-            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-        try:
-            group = dist.group.WORLD
-            assert dist.get_backend(group) == "nccl"
-            for path in ("a2a", "x2y"):
-                out[path] = sharded_one_rank_path(path, group, x, schema,
-                                                  skew)
-            svc = PairwiseService(q=Q, executor="sharded", mesh=group)
-            fused = pairwise_similarity(x, q=Q, schema=schema,
-                                        executor="fused")[0]
-            _build.reset_launch_counts()
-            with KernelSpy() as spy:
-                sims, info = svc.similarity(x_np, w)
-            launched = counts()
-            spy.check("phase 19 service")
-            assert launched == only(fused_gather_gram=out["a2a"][
-                "launches"]), launched
-            assert info["sharded"]["num_shards"] == 1, info["sharded"]
-            assert info["comm"]["measured_over_predicted"] == 1.0
-            torch.testing.assert_close(sims, fused, **FP32)
-            out["service"] = {"wall_s": info["wall_s"],
-                              "sharded": info["sharded"],
-                              "vs_fused_max_abs_err": max_err(sims, fused)}
-            del sims, fused
-        finally:
-            dist.destroy_process_group()
+    with one_rank_nccl() as group:
+        for path in ("a2a", "x2y"):
+            out[path] = sharded_one_rank_path(path, group, x, schema,
+                                              skew)
+        svc = PairwiseService(q=Q, executor="sharded", mesh=group)
+        fused = pairwise_similarity(x, q=Q, schema=schema,
+                                    executor="fused")[0]
+        _build.reset_launch_counts()
+        with KernelSpy() as spy:
+            sims, info = svc.similarity(x_np, w)
+        launched = counts()
+        spy.check("phase 19 service")
+        assert launched == only(fused_gather_gram=out["a2a"][
+            "launches"]), launched
+        assert info["sharded"]["num_shards"] == 1, info["sharded"]
+        assert info["comm"]["measured_over_predicted"] == 1.0
+        torch.testing.assert_close(sims, fused, **FP32)
+        out["service"] = {"wall_s": info["wall_s"],
+                          "sharded": info["sharded"],
+                          "vs_fused_max_abs_err": max_err(sims, fused)}
+        del sims, fused
     for path in ("a2a", "x2y"):
         rec = out[path]
         log(f"phase 19 one-rank NCCL group, sharded {path}: launches "
@@ -1673,7 +1656,7 @@ def sharded_one_rank_path(path: str, group, x, schema, skew) -> dict:
 
 
 def rank_paths(rank: int, world: int, tables: dict, skew_np,
-               want_x2y) -> dict:
+               want_x2y, want_stream=None) -> dict:
     """Phase 20's program on one rank of the group, on card ``rank`` modulo
     the card count (all on ``cuda:0`` with one card): sharded A2A on the
     ``M_RANKS`` table and coded (r=2) A2A on the ``M_CODED`` one
@@ -1681,7 +1664,8 @@ def rank_paths(rank: int, world: int, tables: dict, skew_np,
     X2Y on the skew profile; each matrix against the parent's fused one,
     each launch against its plain version; kernel ms per stacked group of
     this rank's slice, collective ms, host seconds of the planners'
-    maps."""
+    maps.  Then phase 21's part on the same group (``rank_mesh_paths``,
+    given the parent's one-device streaming matrix ``want_stream``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(rank % torch.cuda.device_count())
     out = {"rank": rank, "builds_before": _build.build_counts()}
@@ -1756,6 +1740,9 @@ def rank_paths(rank: int, world: int, tables: dict, skew_np,
                 "all_to_all_bytes": a2a_bytes})
         out[path] = rec
         del sims, want
+    if want_stream is not None:
+        out["phase21"] = rank_mesh_paths(rank, world, tables["sharded_a2a"],
+                                         want_stream)
     out["builds_after"] = _build.build_counts()
     return out
 
@@ -1780,6 +1767,23 @@ def ranks_record(ranks: dict, path: str, kernel: str) -> dict:
             "rank_ms": [r["ms"] for r in recs]}
 
 
+def mesh_record(rec: dict) -> dict:
+    """A phase-21 one-rank path in the ``kernels`` line."""
+    return {k: rec[k] for k in ("launches", "max_abs_err",
+                                "vs_unsharded_max_abs_err")}
+
+
+def mesh_ranks_record(ranks: dict, path: str, kernel: str) -> dict:
+    """A phase-21 path of the gloo ranks in the ``kernels`` line: launches
+    per rank and the largest kernel==plain error."""
+    recs = [r["phase21"][path] for r in ranks["ranks"]]
+    return {"launches": [r["launches"][kernel] for r in recs],
+            "max_abs_err": max(r["kernels"][kernel]["max_abs_err"]
+                               for r in recs),
+            "vs_one_device_max_abs_err": max(
+                r["vs_one_device_max_abs_err"] for r in recs)}
+
+
 def phase_ranks(skew, backend: str = "gloo", ranks: int = RANKS) -> dict:
     """Phase 20: ``ranks`` gloo ranks spawned on this one card (NCCL
     refuses two ranks on one GPU, so the collectives run on host tensors;
@@ -1800,10 +1804,13 @@ def phase_ranks(skew, backend: str = "gloo", ranks: int = RANKS) -> dict:
         "schema"], executor="fused")[0].cpu().numpy()
     skew_np = (skew["wx"], skew["wy"], skew["x"].cpu().numpy(),
                skew["y"].cpu().numpy())
-    _build.build_all(("fused_gather_gram", "fused_gather_gram_rect"))
+    w, x_np, _ = tables["sharded_a2a"]
+    want_stream = run_stream_edits(w, x_np)[0].cpu().numpy()
+    _build.build_all(("fused_gather_gram", "fused_gather_gram_rect",
+                      "pairwise_gram"))
     t0 = time.perf_counter()
     results = compat.run_local_group(
-        rank_paths, ranks, tables, skew_np, want_x2y,
+        rank_paths, ranks, tables, skew_np, want_x2y, want_stream,
         backend=backend, timeout_s=GROUP_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for r in results:
@@ -1845,6 +1852,223 @@ def phase_ranks(skew, backend: str = "gloo", ranks: int = RANKS) -> dict:
         f"{MX}x{MY} X2Y, spawn to last result "
         f"{wall:.1f} s; no rank ran nvcc")
     return {"ranks": results, "wall_s": wall, "backend": backend}
+
+
+# ------------------------------------------------------------ mesh= on the
+# single-program executors, and the engine's dry run (phase 21)
+DRY_M, DRY_D, DRY_Q = 1024, 2048, 32.0    # the reference dry run's defaults
+STREAM_MESH_EDITS = 4
+
+
+def run_stream_edits(w, x_np, mesh=None):
+    """``PairwiseService(executor='streaming', use_kernel=True, mesh=mesh)``
+    on ``(w, x_np)``: ``load_table`` (phase 17's planner thresholds), then
+    ``STREAM_MESH_EDITS`` seeded ``add_input`` edits.  Returns the last
+    matrix and the service."""
+    svc = PairwiseService(q=Q, executor="streaming", use_kernel=True,
+                          mesh=mesh)
+    sims, _ = svc.load_table(x_np, w, max_gap=STREAM_MAX_GAP,
+                             repack_gap=STREAM_REPACK_GAP, warmup=True)
+    rng = np.random.default_rng(SEED + 21)
+    for _ in range(STREAM_MESH_EDITS):
+        sims, _ = svc.add_input(
+            rng.normal(size=x_np.shape[1]).astype(np.float32),
+            zipf_size(rng))
+    torch.cuda.synchronize()
+    return sims, svc
+
+
+def rank_mesh_paths(rank: int, world: int, a2a, want_stream) -> dict:
+    """Phase 21's part on one rank of phase 20's gloo group: fused A2A on
+    the ``M_RANKS`` table with ``mesh=group`` (this rank's block of every
+    bucket's rows, one launch per bucket) against the parent's
+    one-device fused matrix, then the streaming service over the group
+    (``load_table`` and ``STREAM_MESH_EDITS`` edits) against the parent's
+    one-device streaming matrix, every launch against its plain version;
+    then the dry run's coded frontier at the reference's defaults over the
+    group, its measured all-to-all bytes against the model."""
+    import torch.distributed as dist
+    group = dist.group.WORLD
+    w, x_np, want_np = a2a
+    x = torch.from_numpy(x_np).cuda()
+    out = {}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelSpy() as spy:
+        sims, plan, _ = pairwise_similarity(x, q=Q, weights=w,
+                                            executor="fused", mesh=group)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    kern = spy.check(f"phase 21 rank {rank} fused mesh")
+    assert launched == only(fused_gather_gram=len(plan.buckets)), launched
+    want = torch.from_numpy(want_np).cuda()
+    torch.testing.assert_close(sims, want, **FP32,
+                               msg=lambda m: f"rank {rank} fused mesh: {m}")
+    out["fused_a2a"] = {"launches": launched, "kernels": kern,
+                        "vs_one_device_max_abs_err": max_err(sims, want),
+                        "rows": [b.R // world for b in plan.buckets],
+                        "wall_s": wall}
+    del sims, want
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelSpy() as spy:
+        sims, svc = run_stream_edits(w, x_np, mesh=group)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    kern = spy.check(f"phase 21 rank {rank} streaming mesh")
+    assert {k for k, v in launched.items() if v} == {
+        "fused_gather_gram", "pairwise_gram"}, launched
+    want = torch.from_numpy(want_stream).cuda()
+    torch.testing.assert_close(sims, want, **FP32,
+                               msg=lambda m: f"rank {rank} stream mesh: {m}")
+    out["stream"] = {"launches": launched, "kernels": kern,
+                     "vs_one_device_max_abs_err": max_err(sims, want),
+                     "stats": svc.executor_stats(), "wall_s": wall}
+    del sims, want, svc
+    hw = HW.for_device(x.device)
+    out["coded"] = {}
+    for kind in ("uniform", "zipf"):
+        wd = dryrun.profile(DRY_M, DRY_Q, kind == "zipf")
+        schema = plan_a2a(wd, DRY_Q)
+        dplan = build_plan(schema, pad_reducers_to=world)
+        rec = dryrun.analyze_coded(
+            dplan, DRY_M, DRY_D, f"coded-frontier[{schema.algorithm}]",
+            group, device=x.device, hw=hw)
+        for p in rec["pareto_frontier"]:
+            assert p["measured_assembly_bytes_per_shard"] == \
+                p["model_assembly_bytes_per_shard_fp32"], (rank, kind, p)
+        out["coded"][kind] = rec
+    return out
+
+
+def mesh_one_rank_path(name: str, group, x, schema) -> dict:
+    """Phase 21 (a): ``pairwise_similarity(executor=name, mesh=group)`` on
+    the main path's table (``use_kernel=True`` on dense and bucketed, so
+    they launch ``pairwise_gram``), against the same request with
+    ``mesh=None``: equal matrices, equal launches, each launch of the
+    group's request held against its plain version."""
+    uk = name != "fused"
+    kernel = "fused_gather_gram" if name == "fused" else "pairwise_gram"
+    _build.reset_launch_counts()
+    want, plan, _ = pairwise_similarity(x, q=Q, schema=schema,
+                                        executor=name, use_kernel=uk)
+    torch.cuda.synchronize()
+    unsharded = counts()
+    gathers = REGISTRY.counter_total("collective.calls", op="all_gather")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelSpy() as spy:
+        got, _, _ = pairwise_similarity(x, q=Q, schema=schema,
+                                        executor=name, use_kernel=uk,
+                                        mesh=group)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    kern = spy.check(f"phase 21 {name} mesh")
+    n = 1 if name == "dense" else len(plan.buckets)
+    assert launched == unsharded == only(**{kernel: n}), (launched,
+                                                          unsharded)
+    torch.testing.assert_close(got, want, **FP32,
+                               msg=lambda m: f"phase 21 {name}: {m}")
+    rec = {"kernel": kernel, "launches": launched[kernel],
+           "max_abs_err": kern[kernel]["max_abs_err"],
+           "vs_unsharded_max_abs_err": max_err(got, want),
+           "all_gathers": REGISTRY.counter_total(
+               "collective.calls", op="all_gather") - gathers,
+           "wall_s": wall}
+    del got, want
+    free_cuda()
+    return rec
+
+
+def dryrun_profile(kind: str, group, hw) -> dict:
+    """Phase 21 (c) in this process: the dry run's dense, bucketed, fused,
+    sharded and naive rows and the streaming delta at the reference's
+    defaults (bf16 tables) over the one-rank group, and its checks: the
+    bucketed path's peak allocation exceeds the fused path's by at least
+    the largest bucket's gathered (Rb, Lb, d) block less the fused path's
+    fp32 blocks (the fused path keeps them in fp32 where the bucketed one
+    keeps bf16, and holds one bucket's finishing copy), and the
+    planner-vs-naive ratio of ``schema_comm_cost_rows`` is the plans'."""
+    w = dryrun.profile(DRY_M, DRY_Q, kind == "zipf")
+    t0 = time.perf_counter()
+    rows, schema, plan_opt, plan_nv = dryrun.engine_rows(
+        w, DRY_Q, DRY_M, DRY_D, group, hw=hw)
+    stream = dryrun.analyze_streaming(w, DRY_Q, DRY_M, DRY_D,
+                                      "streaming-delta[insert]", hw=hw)
+    wall = time.perf_counter() - t0
+    bucketed, fused = rows[1], rows[2]
+    slack = fused["fused_model"]["block_bytes"]
+    need = bucketed["gathered_bytes_max_bucket"] - slack
+    saved = fused["saved_peak_alloc_bytes_vs_bucketed"]
+    assert saved >= need, (kind, saved, need)
+    ratio = plan_opt.comm_cost / plan_nv.comm_cost
+    for r in rows[:4]:
+        assert r["comm_cost_vs_naive"] == ratio, (r["name"], ratio)
+    free_cuda()
+    return {"rows": rows, "stream": stream, "wall_s": wall,
+            "peak_check": {"saved_peak_alloc_bytes": saved,
+                           "gathered_bytes_max_bucket":
+                               bucketed["gathered_bytes_max_bucket"],
+                           "slack_bytes": slack},
+            "comm_cost_vs_naive": ratio}
+
+
+def phase_mesh(x, schema, ranks) -> dict:
+    """Phase 21: ``mesh=`` on the dense, bucketed, fused and streaming
+    executors and the engine's dry run.  (a) and the one-rank part of (c)
+    run here on an in-process NCCL group of one rank; (b) and the coded
+    frontier of (c) ran on phase 20's gloo ranks (``rank_mesh_paths``),
+    whose results are checked and printed here."""
+    t0 = time.perf_counter()
+    out = {"one_rank": {}, "dryrun": {}}
+    with one_rank_nccl() as group:
+        for name in ("dense", "bucketed", "fused"):
+            rec = out["one_rank"][name] = mesh_one_rank_path(name, group, x,
+                                                             schema)
+            log(f"phase 21 (a) one-rank NCCL group, {name} mesh=group "
+                f"m={M}: {rec['kernel']} launches {rec['launches']} (as "
+                f"mesh=None), kernel==plain max_abs_err "
+                f"{rec['max_abs_err']:.3e}, ==mesh=None max_abs_err "
+                f"{rec['vs_unsharded_max_abs_err']:.3e}, all-gathers "
+                f"{rec['all_gathers']:.0f}, wall {rec['wall_s']:.2f} s")
+        hw = HW.for_device(x.device)
+        for kind in ("uniform", "zipf"):
+            out["dryrun"][kind] = dryrun_profile(kind, group, hw)
+    for r in ranks["ranks"]:
+        for path in ("fused_a2a", "stream"):
+            rec = r["phase21"][path]
+            errs = {k: v["max_abs_err"] for k, v in rec["kernels"].items()}
+            log(f"phase 21 (b) rank {r['rank']}/{RANKS} {path} mesh=group: "
+                f"launches {nonzero(rec['launches'])}, kernel==plain "
+                f"max_abs_err {errs}, ==one device max_abs_err "
+                f"{rec['vs_one_device_max_abs_err']:.3e}, wall "
+                f"{rec['wall_s']:.2f} s")
+    for kind, dr in out["dryrun"].items():
+        coded = [r["phase21"]["coded"][kind] for r in ranks["ranks"]]
+        log(f"phase 21 (c) dry run m={DRY_M} d={DRY_D} q={DRY_Q} {kind} "
+            f"(bf16 tables; one-rank NCCL group, coded on {RANKS} gloo "
+            f"ranks), {dr['wall_s']:.1f} s here:")
+        for line in dryrun.report_lines(dr["rows"] + coded[:1]
+                                        + [dr["stream"]]):
+            log(f"  {line}")
+        pc = dr["peak_check"]
+        measured = [[p["measured_assembly_bytes_per_shard"]
+                     for p in c["pareto_frontier"]] for c in coded]
+        log(f"phase 21 (c) {kind}: bucketed peak - fused peak "
+            f"{pc['saved_peak_alloc_bytes'] / 1e6:.1f} MB >= largest "
+            f"gathered bucket {pc['gathered_bytes_max_bucket'] / 1e6:.1f} MB"
+            f" - fused fp32 blocks {pc['slack_bytes'] / 1e6:.1f} MB; "
+            f"planner/naive schema_comm_cost_rows "
+            f"{dr['comm_cost_vs_naive']:.6f} = the plans'; coded measured "
+            f"all-to-all bytes per rank and r (== the model on every "
+            f"rank): {measured}")
+        out["dryrun"][kind]["coded"] = coded
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 21 in this process {out['wall_s']:.1f} s (phase 20's spawn "
+        f"ran the ranks' part)")
+    return out
 
 
 # ------------------------------------------------------------ LM serving
@@ -2294,7 +2518,7 @@ def main() -> int:
     plan = _plan_for(schema, pad_reducers_to=1, pad_slots_to=1)
     t_build = time.perf_counter() - t0
     x = torch.from_numpy(x_np).cuda()
-    work = work_model(x, plan)
+    work = work_model(plan, *x.shape, x.element_size())
     log(f"plan m={M} d={D}: {schema.algorithm}, {plan.num_reducers} "
         f"reducers, bucket widths {plan.bucket_widths()} with "
         f"{[b.R for b in plan.buckets]} reducers, "
@@ -2322,6 +2546,8 @@ def main() -> int:
     one_rank = phase_sharded_one_rank(x, x_np, w, schema, skew)
     free_cuda()
     ranks = phase_ranks(skew)
+    free_cuda()
+    mesh = phase_mesh(x, schema, ranks)
     free_cuda()
     lm = {"fp32": phase_lm_fp32(), "bf16": phase_lm_bf16(),
           "long": phase_lm_long(), "decode": phase_lm_decode()}
@@ -2363,7 +2589,12 @@ def main() -> int:
                 "max_abs_err": stream["load"]["kernel_err"]},
             "sharded_a2a_1rank": path_record(one_rank["a2a"]),
             f"sharded_a2a_{RANKS}ranks": ranks_record(ranks, "sharded_a2a",
-                                                      "fused_gather_gram")},
+                                                      "fused_gather_gram"),
+            "mesh_a2a_1rank": mesh_record(mesh["one_rank"]["fused"]),
+            f"mesh_a2a_{RANKS}ranks": mesh_ranks_record(
+                ranks, "fused_a2a", "fused_gather_gram"),
+            f"stream_mesh_{RANKS}ranks_cold": mesh_ranks_record(
+                ranks, "stream", "fused_gather_gram")},
         "ptxas": build_s["ptxas"]["fused_gather_gram"],
     }]
     rect_paths = {}
@@ -2375,7 +2606,9 @@ def main() -> int:
             + [(f"block_{r['block'][0]}_{r['block'][2]}", r["x"], r["y"],
                 r["plan"], r["launches"]) for r in blocks["blocks"]]):
         t = timing_new[name.replace("x2y_", "")]["totals"]
-        b_ms, b_by = bound(rect_work(xt, yt, rplan), PEAK_FP32_CUDA_CORES)
+        b_ms, b_by = bound(rect_work(
+            rplan, xt.shape[0] + yt.shape[0], xt.shape[1], xt.element_size()),
+            PEAK_FP32_CUDA_CORES)
         rect_paths[name] = {
             "launches": launches["fused_gather_gram_rect"],
             "ms": t["kernel_fp32"], "bf16_ms": t["kernel_bf16"],
@@ -2418,7 +2651,8 @@ def main() -> int:
         "ptxas": build_s["ptxas"]["fused_gather_gram_rect"],
     })
     pt = timing_new["pairwise_gram"]["totals"]
-    p_ms, p_by = bound(pairwise_work(x, plan), PEAK_FP32_CUDA_CORES)
+    p_ms, p_by = bound(pairwise_work(plan, x.shape[1], x.element_size()),
+                       PEAK_FP32_CUDA_CORES)
     log(f"pairwise_gram on the use_kernel=True bucketed path: "
         f"{pgram['launches']['pairwise_gram']} launches, "
         f"{pt['kernel_fp32']:.4f} ms fp32 vs bound {p_ms:.4f} ms ({p_by}), "
@@ -2447,7 +2681,12 @@ def main() -> int:
             "max_abs_err": stream["pairwise_gram"]["max_abs_err"],
             "ms": stream["pairwise_gram"]["ms"],
             "plain_ms": stream["pairwise_gram"]["plain_ms"],
-            "warmup_launches": stream["load"]["launches"]["pairwise_gram"]}},
+            "warmup_launches": stream["load"]["launches"]["pairwise_gram"]},
+            "mesh_dense_1rank": mesh_record(mesh["one_rank"]["dense"]),
+            "mesh_bucketed_1rank": mesh_record(
+                mesh["one_rank"]["bucketed"]),
+            f"stream_mesh_{RANKS}ranks_deltas": mesh_ranks_record(
+                ranks, "stream", "pairwise_gram")},
         "ptxas": build_s["ptxas"]["pairwise_gram"],
     })
     kernels += lm_kernel_records(lm)
@@ -2472,7 +2711,7 @@ def main() -> int:
             "pairwise_gram": pgram, "timing_new": timing_new,
             "some_pairs": some, "stream_a2a": stream,
             "stream_x2y": stream_x2y, "sharded_one_rank": one_rank,
-            "ranks": ranks, "lm": lm,
+            "ranks": ranks, "mesh": mesh, "lm": lm,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

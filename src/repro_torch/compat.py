@@ -9,6 +9,9 @@ plans the same inputs the same way and runs only its own shard.
   ``shard_group(mesh, shard_axes)`` — ``(group, num_shards, rank)``; a
         ``mesh`` of ``None`` means the default group when one has been
         initialised, else one shard and no collective.
+  ``reducer_group(mesh)`` — the same for the executors that
+        split each bucket's reducer rows over a group (dense, bucketed,
+        fused, streaming): there ``mesh=None`` is always local.
   ``all_gather(vec, group)`` — every rank's equal-length vector,
         concatenated in rank order (one collective).
   ``all_to_all(send, group)`` — ``send`` is ``(S, E)``; lane ``s``
@@ -38,7 +41,8 @@ import torch.distributed as dist
 
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
 
-__all__ = ["shard_group", "all_gather", "all_to_all", "run_local_group"]
+__all__ = ["shard_group", "reducer_group", "all_gather", "all_to_all",
+           "run_local_group"]
 
 # ``all_gather_single`` replaces ``all_gather_into_tensor`` in newer torch
 # (which warns on the old name); the card's torch may predate it
@@ -64,6 +68,17 @@ def shard_group(mesh, shard_axes=None) -> tuple:
         raise TypeError(f"mesh must be a torch.distributed.ProcessGroup, "
                         f"got {type(mesh).__name__}")
     return mesh, dist.get_world_size(mesh), dist.get_rank(mesh)
+
+
+def reducer_group(mesh) -> tuple:
+    """``(group, num_ranks, rank)`` the dense, bucketed, fused and
+    streaming executors split reducer rows over.  Unlike
+    :func:`shard_group`, ``mesh=None`` means no group even when a default
+    group has been initialised: these executors run locally unless a group
+    is passed, as the reference runs them on one device without a mesh."""
+    if mesh is None:
+        return None, 1, 0
+    return shard_group(mesh)
 
 
 def _on_wire(t: torch.Tensor, group) -> torch.Tensor:

@@ -38,7 +38,8 @@ from .. import _build
 
 __all__ = ["fused_gather_gram", "fused_gather_gram_ref",
            "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
-           "gather_bytes", "gather_rows", "ieee_fp32", "launch_count",
+           "fused_traffic_model", "gather_bytes", "gather_rows",
+           "ieee_fp32", "launch_count",
            "rect_gather_bytes", "rect_tile_widths", "reset_launch_count",
            "tile_width"]
 
@@ -93,6 +94,39 @@ def rect_gather_bytes(xmask, ymask, d: int, itemsize: int) -> int:
     TM, TN = rect_tile_widths(Lx, Ly)
     rows = int(xmask.sum()) * -(-Ly // TN) + int(ymask.sum()) * -(-Lx // TM)
     return rows * d * itemsize
+
+
+def fused_traffic_model(buckets, d: int, itemsize: int,
+                        bl: int = 128) -> dict:
+    """The reference's analytic HBM bytes of its TPU kernel's dataflow vs
+    the unfused pipeline, copied unchanged (its ``bl=128`` row tiles), so
+    the dry run reports the same model beside :func:`gather_bytes`, which
+    models this port's kernel.
+
+    Per reducer of bucket width Lb with n = ceil(Lb/bl) row tiles:
+
+      fused    — xi gathered once per tile row (Lb rows), xj re-gathered per
+                 (i, j) tile (n·Lb rows), plus the (Lb, Lb) fp32 block write.
+      unfused  — the gather writes (Lb, d) then the Gram kernel reads it as
+                 both operands (3·Lb·d round trip counted once each way ->
+                 4·Lb·d with the gather's own table read), plus the block.
+
+    Returns totals plus ``saved_bytes`` (the materialized-gather round trip
+    the fused kernel removes, net of its tile re-reads).
+    """
+    fused = unfused = blocks = 0
+    for b in buckets:
+        Rb, Lb = int(b.idx.shape[0]), int(b.idx.shape[1])
+        n = -(-Lb // bl)
+        fused += Rb * (1 + n) * Lb * d * itemsize
+        unfused += Rb * 4 * Lb * d * itemsize
+        blocks += Rb * Lb * Lb * 4
+    return {
+        "fused_bytes": fused + blocks,
+        "unfused_bytes": unfused + blocks,
+        "saved_bytes": unfused - fused,
+        "block_bytes": blocks,
+    }
 
 
 def launch_count() -> int:

@@ -40,9 +40,9 @@ from repro_torch.obs import span as _obs_span
 
 from repro_torch.compat import shard_group
 
-from .engine import (ReducerPlan, SparsePlan, _as_tables, _no_mesh,
-                     as_table, build_plan, build_sparse_plan, build_x2y_plan)
-from .executors import ShardedExecutor, get_executor
+from .engine import (ReducerPlan, SparsePlan, _as_tables, as_table,
+                     build_plan, build_sparse_plan, build_x2y_plan)
+from .executors import get_executor
 
 __all__ = [
     "pairwise_similarity",
@@ -130,16 +130,12 @@ def _block_fn_x2y(metric: str):
     return fn
 
 
-def _mesh_pad(executor, mesh) -> int:
+def _mesh_pad(mesh) -> int:
     """Reducer-row padding for ``mesh``: its group's size, as the reference
-    pads to the mesh's device count (1 without a mesh).  Only the sharded
-    and coded executors take a mesh; any other raises here, before any
-    planning."""
-    if mesh is None:
-        return 1
-    if not isinstance(get_executor(executor), ShardedExecutor):
-        _no_mesh(mesh)
-    return shard_group(mesh)[1]
+    pads to the mesh's device count (1 without a mesh), for every
+    executor.  A ``mesh`` that is not a process group raises here, before
+    any planning."""
+    return 1 if mesh is None else shard_group(mesh)[1]
 
 
 def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
@@ -309,15 +305,17 @@ def pairwise_similarity(
     gather+Gram kernel launch per bucket and one assembly gather;
     ``'sharded'`` / ``'coded'`` run the fused pipeline per rank of the
     process group ``mesh`` (``None``: the default group if one is
-    initialised, else one shard) and assemble across ranks, with reducer
-    rows padded to the group's size as the reference pads to its mesh.
+    initialised, else one shard) and assemble across ranks; the others
+    split each bucket's reducer rows over ``mesh``'s ranks (``None``:
+    local).  Reducer rows are padded to the group's size as the reference
+    pads to its mesh.
     ``executor`` may also be an :class:`~repro_torch.mapreduce.executors.
     Executor` instance.  ``device=None`` runs on CUDA (raises without a
     card); pass ``device="cpu"`` for the plain CPU path.  Returns
     (sims (m, m) with zero diagonal, plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    pad = _mesh_pad(executor, mesh)
+    pad = _mesh_pad(mesh)
     with _obs_span("plan", workload="pairs", m=m):
         if schema is None:
             w = (np.full(m, 1.0) if weights is None
@@ -408,7 +406,7 @@ def some_pairs_similarity(
     :func:`pairwise_similarity`.  Returns (sims (m, m), plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    pad = _mesh_pad(executor, mesh)
+    pad = _mesh_pad(mesh)
     with _obs_span("plan", workload="some_pairs", m=m):
         if schema is None:
             w = (np.full(m, 1.0) if weights is None
@@ -460,7 +458,7 @@ def x2y_similarity(
     plans.  Returns (sims (mx, my), plan, schema)."""
     x, y = _as_tables((x, y), device)
     mx, my = x.shape[0], y.shape[0]
-    pad = _mesh_pad(executor, mesh)
+    pad = _mesh_pad(mesh)
     with _obs_span("plan", workload="x2y", mx=mx, my=my):
         if schema is None:
             wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)

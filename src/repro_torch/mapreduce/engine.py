@@ -35,10 +35,18 @@ shape or dtype that an entry has not served before.
 sub-plans are LRU-cached per ``SparsePlan`` under one shared cap
 (``REPRO_BLOCK_CACHE_SIZE`` / ``configure_block_cache``).
 
-The runners here take no ``mesh``: one other than ``None`` raises
-``NotImplementedError``.  Sharded execution over a process group is the
-``sharded`` / ``coded`` executors' (``run_reducers_sharded`` is the shim
-over the former).
+Every runner takes a ``mesh``: a ``torch.distributed.ProcessGroup`` of
+``S`` ranks over which each bucket's reducer rows are split, as the
+reference shards the reducer axis of ``idx`` / ``mask`` and the output
+over its mesh while the table stays replicated.  Rank ``r`` runs rows
+``[r Rb/S, (r+1) Rb/S)`` of every bucket (of the dense plan, for the dense
+runners) and the ranks' outputs are assembled by ONE all-gather per call,
+so every rank returns the whole result.  A bucket whose rows do not divide
+by ``S`` raises ``ValueError``: plans for a group are built with
+``pad_reducers_to=S``.  ``mesh=None`` runs locally, even when a default
+group is initialised.  The ``sharded`` / ``coded`` executors partition a
+plan over a group instead (``run_reducers_sharded`` is the shim over the
+former).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat as _compat
 from repro_torch._device import resolve_device
 from repro_torch.core.planner import compute_buckets, compute_rect_buckets
 from repro_torch.core.schema import MappingSchema
@@ -579,12 +588,6 @@ def plan_from_arrays(fields: dict) -> ReducerPlan:
         num_y=int(fields.get("num_y", 0)))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "only the 'sharded' and 'coded' executors take a mesh")
-
-
 def as_table(inputs, device=None) -> torch.Tensor:
     """The ``(m, d)`` input table on the resolved device (``None`` means
     CUDA, see ``repro_torch.resolve_device``)."""
@@ -838,6 +841,35 @@ def rect_bucket_arrays(plan, device):
 
 
 # ---------------------------------------------------------------------------
+# reducer rows over a process group
+# ---------------------------------------------------------------------------
+def rank_rows(R: int, S: int, rank: int) -> slice:
+    """Rank ``rank``'s contiguous block of a bucket's ``R`` reducer rows
+    split over ``S`` ranks (what ``NamedSharding(P(axes))`` gives on the
+    leading axis).  Raises ``ValueError`` unless ``S`` divides ``R``."""
+    if R % S:
+        raise ValueError(
+            f"{R} reducer rows do not split over a group of {S} ranks: "
+            f"build the plan with pad_reducers_to={S}")
+    n = R // S
+    return slice(rank * n, (rank + 1) * n)
+
+
+def all_ranks(local: list, group, S: int) -> list:
+    """Every rank's rows of each tensor in ``local`` (this rank's row block
+    of one output per bucket), stacked in rank order: ONE all-gather of
+    the concatenation.  ``group`` ``None`` returns ``local``."""
+    if group is None:
+        return local
+    assert len({t.dtype for t in local}) == 1, [t.dtype for t in local]
+    flat = torch.cat([t.reshape(-1) for t in local])
+    full = _compat.all_gather(flat, group).reshape(S, flat.numel())
+    parts = full.split([t.numel() for t in local], dim=1)
+    return [p.reshape((S * t.shape[0],) + tuple(t.shape[1:]))
+            for p, t in zip(parts, local)]
+
+
+# ---------------------------------------------------------------------------
 # dense + bucketed runners
 # ---------------------------------------------------------------------------
 def _gather_reduce(x, idx, mask, reducer_fn):
@@ -854,12 +886,16 @@ def run_reducers(
     device=None,
 ) -> torch.Tensor:
     """Execute ``reducer_fn(block (L, d), mask (L,)) -> tensor`` per
-    reducer, every reducer padded to the plan's dense width."""
-    _no_mesh(mesh)
+    reducer, every reducer padded to the plan's dense width; with a
+    ``mesh``, each rank runs its block of the rows (see the module
+    docstring)."""
+    group, S, rank = _compat.reducer_group(mesh)
+    rows = rank_rows(plan.R, S, rank)
     x = as_table(inputs, device)
     idx, mask = uploaded("dense", plan, x,
                          lambda dev: _dense_arrays(plan, dev))
-    return _gather_reduce(x, idx, mask, reducer_fn)
+    local = _gather_reduce(x, idx[rows], mask[rows], reducer_fn)
+    return all_ranks([local], group, S)[0]
 
 
 def _pad_to(t: torch.Tensor, target_shape) -> torch.Tensor:
@@ -881,7 +917,9 @@ def run_reducers_bucketed(
     combine: str = "dense",
     device=None,
 ):
-    """Skew-aware execution: one gather+reduce per capacity bucket.
+    """Skew-aware execution: one gather+reduce per capacity bucket (with a
+    ``mesh``, each rank's block of every bucket's rows, then ONE
+    all-gather).
 
     combine='dense'    — one tensor shaped exactly like the ``run_reducers``
         output: bucket outputs are zero-padded along their slot-sized axes
@@ -889,15 +927,18 @@ def run_reducers_bucketed(
     combine='buckets'  — ``[(bucket, out), ...]`` unpadded.
     """
     assert combine in ("dense", "buckets"), combine
-    _no_mesh(mesh)
     if not plan.buckets:
-        out = run_reducers(inputs, plan, reducer_fn, device=device)
+        out = run_reducers(inputs, plan, reducer_fn, mesh=mesh,
+                           device=device)
         return out if combine == "dense" else []
+    group, S, rank = _compat.reducer_group(mesh)
+    rows = [rank_rows(b.R, S, rank) for b in plan.buckets]
     x = as_table(inputs, device)
     arrays = uploaded("buckets", plan, x,
                       lambda dev: bucket_arrays(plan, dev))
-    per_bucket = [(b, _gather_reduce(x, idx, mask, reducer_fn))
-                  for b, (idx, mask, _) in zip(plan.buckets, arrays)]
+    local = [_gather_reduce(x, idx[r], mask[r], reducer_fn)
+             for r, (idx, mask, _) in zip(rows, arrays)]
+    per_bucket = list(zip(plan.buckets, all_ranks(local, group, S)))
     if combine == "buckets":
         return per_bucket
 
@@ -939,17 +980,21 @@ def run_reducers_x2y(
     device=None,
 ):
     """Dense rectangular execution: ``reducer_fn(xblock (Lx, dx),
-    xmask (Lx,), yblock (Ly, dy), ymask (Ly,)) -> tensor`` per reducer.
+    xmask (Lx,), yblock (Ly, dy), ymask (Ly,)) -> tensor`` per reducer
+    (with a ``mesh``, each rank's block of the rows).
 
     The two gathers are the bipartite shuffle — X rows and Y rows ship to
     their reducer slots independently.  ``tables`` may be one tensor
     (shared table) or an (x, y) pair."""
     assert plan.is_rect, "run_reducers_x2y needs a rectangular plan"
-    _no_mesh(mesh)
+    group, S, rank = _compat.reducer_group(mesh)
+    rows = rank_rows(plan.R, S, rank)
     xt, yt = _as_tables(tables, device)
     arrays = uploaded("x2y-dense", plan, xt,
                       lambda dev: _dense_rect_arrays(plan, dev), ytable=yt)
-    return _gather_reduce_x2y(xt, yt, *arrays, reducer_fn)
+    local = _gather_reduce_x2y(xt, yt, *(a[rows] for a in arrays),
+                               reducer_fn)
+    return all_ranks([local], group, S)[0]
 
 
 def run_reducers_x2y_bucketed(
@@ -962,22 +1007,27 @@ def run_reducers_x2y_bucketed(
     device=None,
 ):
     """Skew-aware rectangular execution: one double-gather+reduce per
-    (wx, wy) capacity bucket.  Semantics mirror
+    (wx, wy) capacity bucket (with a ``mesh``, each rank's block of every
+    bucket's rows, then ONE all-gather).  Semantics mirror
     :func:`run_reducers_bucketed`: ``combine='dense'`` scatters bucket
     outputs (padded on both slot axes to the dense (Lx, Ly)) back into
     original reducer order; ``combine='buckets'`` returns
     ``[(bucket, out), ...]`` unpadded."""
     assert combine in ("dense", "buckets"), combine
     assert plan.is_rect, "run_reducers_x2y_bucketed needs a rect plan"
-    _no_mesh(mesh)
     if not plan.buckets:
-        out = run_reducers_x2y(tables, plan, reducer_fn, device=device)
+        out = run_reducers_x2y(tables, plan, reducer_fn, mesh=mesh,
+                               device=device)
         return out if combine == "dense" else []
+    group, S, rank = _compat.reducer_group(mesh)
+    rows = [rank_rows(b.R, S, rank) for b in plan.buckets]
     xt, yt = _as_tables(tables, device)
     arrays = uploaded("x2y-buckets", plan, xt,
                       lambda dev: rect_bucket_arrays(plan, dev), ytable=yt)
-    per_bucket = [(b, _gather_reduce_x2y(xt, yt, *arr[:4], reducer_fn))
-                  for b, arr in zip(plan.buckets, arrays)]
+    local = [_gather_reduce_x2y(xt, yt, *(a[r] for a in arr[:4]),
+                                reducer_fn)
+             for r, arr in zip(rows, arrays)]
+    per_bucket = list(zip(plan.buckets, all_ranks(local, group, S)))
     if combine == "buckets":
         return per_bucket
 

@@ -47,8 +47,12 @@ Registered executors:
 
 On dense and bucketed, ``use_kernel=True`` reducers (``allpairs._block_fn``)
 compute each block with the ``pairwise_gram`` kernel, one batched launch
-per gather.  Only ``sharded`` and ``coded`` take a ``mesh``; the others
-raise ``NotImplementedError`` on one, and every executor's ``lower`` raises
+per gather.  Every executor takes a ``mesh`` (a
+``torch.distributed.ProcessGroup``).  ``dense``, ``bucketed``, ``fused``
+and ``streaming`` split each bucket's reducer rows over its ranks and
+all-gather the blocks once per request (``mesh=None``: local);
+``sharded`` and ``coded`` partition the plan over it (``mesh=None``: the
+default group if one is initialised).  Every executor's ``lower`` raises
 (see ``Executor.lower``).
 """
 
@@ -73,10 +77,11 @@ from repro_torch.obs import _config as _obs_config
 from .engine import (
     ReducerPlan,
     _as_tables,
-    _no_mesh,
+    all_ranks,
     as_table,
     block_subplan,
     bucket_arrays,
+    rank_rows,
     rect_bucket_arrays,
     run_reducers,
     run_reducers_bucketed,
@@ -178,8 +183,10 @@ class Executor:
     def lower(self, *args, **kwargs):
         """The reference lowers an executor's program to XLA for its
         dry-run and roofline analysis; eager PyTorch has no such lowering,
-        so this raises.  The port's analysis tooling reads byte models and
-        the card's profiler instead, and comes with its own slice."""
+        so this raises.  The port's dry run,
+        ``repro_torch.launch.dryrun_engine``, runs the executor instead and
+        reads the package's work models (``repro_torch.launch.roofline``),
+        the obs collective counters and the card's events."""
         raise NotImplementedError(
             f"{self.name}: there is no XLA lowering in the PyTorch port")
 
@@ -367,23 +374,22 @@ class DenseExecutor(Executor):
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
         from .allpairs import assemble_pair_matrix
-        _no_mesh(mesh)
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
                         measured_slots=_plan_valid_slots(plan))
-        blocks = run_reducers(x, plan, reducer_fn, device=x.device)
+        blocks = run_reducers(x, plan, reducer_fn, mesh=mesh,
+                              device=x.device)
         return assemble_pair_matrix(blocks, plan, m)
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
         from .allpairs import assemble_x2y_matrix_bucketed
-        _no_mesh(mesh)
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         self._reconcile(plan, "x2y", xt,
                         measured_slots=_plan_valid_slots(plan))
-        blocks = run_reducers_x2y((xt, yt), plan, reducer_fn,
+        blocks = run_reducers_x2y((xt, yt), plan, reducer_fn, mesh=mesh,
                                   device=xt.device)
         # the plan's dense idx/mask/yidx/ymask rows are bucket-shaped, so
         # the whole plan assembles as a single "bucket"
@@ -406,25 +412,24 @@ class BucketedExecutor(Executor):
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
         from .allpairs import assemble_pair_matrix_bucketed
-        _no_mesh(mesh)
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
                         measured_slots=_bucket_valid_slots(plan))
-        per_bucket = run_reducers_bucketed(x, plan, reducer_fn,
+        per_bucket = run_reducers_bucketed(x, plan, reducer_fn, mesh=mesh,
                                            combine="buckets", device=x.device)
         return assemble_pair_matrix_bucketed(per_bucket, m, device=x.device)
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
         from .allpairs import assemble_x2y_matrix_bucketed
-        _no_mesh(mesh)
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         self._reconcile(plan, "x2y", xt,
                         measured_slots=_bucket_valid_slots(plan))
         per_bucket = run_reducers_x2y_bucketed(
-            (xt, yt), plan, reducer_fn, combine="buckets", device=xt.device)
+            (xt, yt), plan, reducer_fn, mesh=mesh, combine="buckets",
+            device=xt.device)
         return assemble_x2y_matrix_bucketed(per_bucket, shape,
                                             device=xt.device)
 
@@ -513,9 +518,11 @@ class FusedExecutor(Executor):
             postprocess_arg=None):
         """``combine`` follows the bucketed executor ('dense' / 'buckets');
         ``postprocess(per_bucket, postprocess_arg)`` replaces the combine
-        step (allpairs passes its inverse-shuffle assembly)."""
+        step (allpairs passes its inverse-shuffle assembly).  With a
+        ``mesh``, each rank launches the kernel on its block of every
+        bucket's rows and ONE all-gather of the finished blocks gives
+        every rank all of them before the combine."""
         assert combine in ("dense", "buckets"), combine
-        _no_mesh(mesh)
         x = as_table(inputs, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -523,7 +530,7 @@ class FusedExecutor(Executor):
             self._count_fallback(
                 "non_gram_reducer" if metric is None else "no_buckets")
             out = run_reducers_bucketed(
-                x, plan, reducer_fn, device=x.device,
+                x, plan, reducer_fn, mesh=mesh, device=x.device,
                 combine="buckets" if postprocess is not None else combine)
             if postprocess is not None:
                 arrays = uploaded("buckets", plan, x,
@@ -533,14 +540,15 @@ class FusedExecutor(Executor):
                 return postprocess(per_bucket, postprocess_arg)
             return out
 
+        group, S, rank = _compat.reducer_group(mesh)
+        mine = [rank_rows(b.R, S, rank) for b in plan.buckets]
         self._count("kernel" if x.is_cuda else "streamed")
         arrays = uploaded("buckets", plan, x,
                           lambda dev: bucket_arrays(plan, dev))
-        per_bucket = []
-        for idx, msk, rows in arrays:
-            g = fused_gather_gram(x, idx, msk)
-            per_bucket.append(((idx, msk, rows),
-                               _finish_fused_blocks(g, msk, metric)))
+        local = [_finish_fused_blocks(
+            fused_gather_gram(x, idx[r], msk[r]), msk[r], metric)
+            for r, (idx, msk, _) in zip(mine, arrays)]
+        per_bucket = list(zip(arrays, all_ranks(local, group, S)))
         if postprocess is not None:
             return postprocess(per_bucket, postprocess_arg)
         if combine == "buckets":
@@ -560,7 +568,6 @@ class FusedExecutor(Executor):
         """``use_kernel`` is accepted for signature parity: on a CUDA table
         the fused path always runs the kernel."""
         from .allpairs import _assemble_from_srcmap, _pair_source_map
-        _no_mesh(mesh)
         x = as_table(x, device)
         # reconcile here, not in run(): the delegation below must not
         # double-record the request
@@ -570,22 +577,23 @@ class FusedExecutor(Executor):
             f"srcmap:{m}", plan, x,
             lambda dev: torch.as_tensor(_pair_source_map(plan, m),
                                         device=dev).long())
-        return self.run(x, plan, reducer_fn, device=x.device,
+        return self.run(x, plan, reducer_fn, mesh=mesh, device=x.device,
                         postprocess=_assemble_from_srcmap,
                         postprocess_arg=srcmap)
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
         """Rectangular fused path: per rect bucket, independent X/Y gather
-        maps drive ONE launch of the rectangular gather+Gram kernel, and
-        ONE inverse-shuffle gather assembles the (mx, my) matrix.  Non-Gram
-        reducers fall back to the rect-bucketed path (identical outputs;
-        counted).  ``use_kernel`` is accepted for signature parity."""
+        maps drive ONE launch of the rectangular gather+Gram kernel (with a
+        ``mesh``, on this rank's block of the bucket's rows, then ONE
+        all-gather), and ONE inverse-shuffle gather assembles the (mx, my)
+        matrix.  Non-Gram reducers fall back to the rect-bucketed path
+        (identical outputs; counted).  ``use_kernel`` is accepted for
+        signature parity."""
         from .allpairs import (
             _pair_source_map_rect,
             assemble_x2y_matrix_bucketed,
         )
-        _no_mesh(mesh)
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         self._reconcile(plan, "x2y", xt,
@@ -595,10 +603,12 @@ class FusedExecutor(Executor):
             self._count_fallback(
                 "non_gram_reducer" if metric is None else "no_buckets")
             per_bucket = run_reducers_x2y_bucketed(
-                (xt, yt), plan, reducer_fn, combine="buckets",
+                (xt, yt), plan, reducer_fn, mesh=mesh, combine="buckets",
                 device=xt.device)
             return assemble_x2y_matrix_bucketed(per_bucket, shape,
                                                 device=xt.device)
+        group, S, rank = _compat.reducer_group(mesh)
+        mine = [rank_rows(b.R, S, rank) for b in plan.buckets]
         self._count("kernel" if xt.is_cuda else "streamed")
         mx, my = shape
         arrays = uploaded("x2y-buckets", plan, xt,
@@ -609,14 +619,14 @@ class FusedExecutor(Executor):
             lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
                                         device=dev).long(), ytable=yt)
         n2x, n2y = _table_norms(xt, yt, metric)
-        vals = [torch.zeros(1, dtype=torch.float32, device=xt.device)]
-        for xidx, xmsk, yidx, ymsk, _ in arrays:
-            g = fused_gather_gram_rect(xt, yt, xidx, xmsk, yidx, ymsk)
-            vals.append(_finish_rect_blocks(g, xidx, xmsk, yidx, ymsk, n2x,
-                                            n2y, metric).reshape(-1))
+        local = []
+        for r, arr in zip(mine, arrays):
+            s = [a[r] for a in arr[:4]]
+            local.append(_finish_rect_blocks(fused_gather_gram_rect(
+                xt, yt, *s), *s, n2x, n2y, metric))
         # rectangular inverse shuffle: ONE assembly gather through the
         # host-built source map (slot 0 -> 0.0 for uncovered cells)
-        return torch.cat(vals)[srcmap]
+        return _with_zero_slot(all_ranks(local, group, S))[srcmap]
 
 
 # ---------------------------------------------------------------------------

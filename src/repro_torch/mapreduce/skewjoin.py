@@ -65,7 +65,7 @@ def skew_join(
     ex = get_executor(executor)
     xt, yt = _as_tables((x_vals, y_vals), device)
     mx, my = xt.shape[0], yt.shape[0]
-    pad = _mesh_pad(ex, mesh)
+    pad = _mesh_pad(mesh)
     if schema is None:
         wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)
         wy_ = np.full(my, 1.0) if wy is None else np.asarray(wy, float)

@@ -141,9 +141,11 @@ class PairwiseService:
     on a private instance of a registry executor ("dense" / "bucketed" /
     "fused" / "sharded" / "coded" / "streaming") on ``device`` (``None``
     means CUDA and raises without a card).  ``mesh`` is the
-    ``torch.distributed`` process group the sharded and coded executors
-    run over (``None``: the default group if one is initialised, else one
-    shard); their responses add ``info["sharded"]`` / ``info["coded"]``.
+    ``torch.distributed`` process group the executors run over: the
+    sharded and coded executors partition the plan over it (``None``: the
+    default group if one is initialised, else one shard; their responses
+    add ``info["sharded"]`` / ``info["coded"]``), the others split every
+    bucket's reducer rows over its ranks (``None``: local).
     """
 
     def __init__(self, q: float, *, metric: str = "dot", mesh=None,
@@ -454,6 +456,7 @@ class PairwiseService:
         ``repack_gap`` / ``background`` tune the planner's re-plan
         ceiling, soft repack threshold, and double-buffered re-plan (see
         ``repro_torch.stream.StreamPlannerBase``)."""
+        from repro_torch.mapreduce.allpairs import _mesh_pad
         from repro_torch.stream import IncrementalPlanner
         ex = self._require_streaming()
         self._table = np.asarray(x, dtype=np.float32)
@@ -464,7 +467,11 @@ class PairwiseService:
         self._planner = IncrementalPlanner(
             self.q, w, replan_drift=replan_drift, max_gap=max_gap,
             repack_gap=repack_gap, background=background,
-            max_buckets=self.max_buckets)
+            max_buckets=self.max_buckets,
+            # a group splits every bucket's rows over its ranks: pad
+            # reducer rows (full plan and delta sub-plans) to its size,
+            # exactly like allpairs._plan_for
+            pad_reducers_to=_mesh_pad(self.mesh))
         plan = self._planner.plan()
         xt = torch.as_tensor(self._table, device=self.device)
         with _obs_span("request", workload="load_table",
@@ -478,7 +485,7 @@ class PairwiseService:
         if warmup:
             warmed = ex.warm_delta_shapes(
                 xt, self._planner.delta_shapes(), self._reducer_fn(),
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         dt = time.perf_counter() - t0
         self.stats["requests"] += 1
         self.stats["reducers"] += plan.num_reducers
@@ -515,7 +522,8 @@ class PairwiseService:
             sims = ex.apply_delta(
                 self._table, delta, self._reducer_fn(),
                 self._table.shape[0], plan_provider=self._planner.plan,
-                use_kernel=self.use_kernel, device=self.device)
+                mesh=self.mesh, use_kernel=self.use_kernel,
+                device=self.device)
             if sims.is_cuda:
                 torch.cuda.synchronize(sims.device)
         dt = time.perf_counter() - t0

@@ -14,6 +14,14 @@ invalidated and refilled by a delta max-scatter — instead of being rebuilt.
 A full re-plan delta (gap drift, opaque schema) falls back to a cold build,
 counted in ``stats()``.
 
+With a ``mesh`` (a ``torch.distributed.ProcessGroup``) the cold build
+runs on the substrate over the group and every delta's sub-plan through
+the bucketed runner over it: each rank computes its block of every
+bucket's rows and the all-gathered blocks patch the maintained matrix,
+which stays whole and identical on every rank.  Plans and delta sub-plans
+must pad their bucket rows to the group's size (the service's
+``load_table`` sets ``pad_reducers_to``).
+
 The reference's arrays are immutable, so its ``sims[:m, :m]`` can never
 change under the caller.  Here the maintained matrix is invalidated and
 scattered in place, so every patch returns a copy of the live block (m^2
@@ -39,7 +47,6 @@ from repro_torch.mapreduce.engine import (
     ReducerBucket,
     ReducerPlan,
     _as_tables,
-    _no_mesh,
     as_table,
     run_reducers_bucketed,
     run_reducers_x2y_bucketed,
@@ -110,20 +117,18 @@ class StreamingExecutor(Executor):
             **kwargs):
         """Non-pairs reducer execution has no serving state to patch:
         delegate to the substrate (counted as a fallback)."""
-        _no_mesh(mesh)
         self._count("calls")
         self._count("fallbacks")
-        return self._sub.run(inputs, plan, reducer_fn, device=device,
-                             **kwargs)
+        return self._sub.run(inputs, plan, reducer_fn, mesh=mesh,
+                             device=device, **kwargs)
 
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
         """Cold build: execute the full plan on the substrate and adopt the
         (m, m) matrix as streaming state."""
-        _no_mesh(mesh)
         self._count("calls")
         return self._rebuild(as_table(x, device), plan, reducer_fn, m,
-                             use_kernel=use_kernel)
+                             mesh=mesh, use_kernel=use_kernel)
 
     def reset(self) -> None:
         super().reset()
@@ -221,8 +226,9 @@ class StreamingExecutor(Executor):
                       else (0, 0) * (x.dim() - 1) + (0, pad))
         return x
 
-    def _rebuild(self, x, plan, reducer_fn, m, *, use_kernel=False):
-        sims = self._sub.run_pairs(x, plan, reducer_fn, m,
+    def _rebuild(self, x, plan, reducer_fn, m, *, mesh=None,
+                 use_kernel=False):
+        sims = self._sub.run_pairs(x, plan, reducer_fn, m, mesh=mesh,
                                    use_kernel=use_kernel, device=x.device)
         self._sims = self._at_capacity(sims, square=True)   # a new tensor
         self._fn = reducer_fn
@@ -230,15 +236,17 @@ class StreamingExecutor(Executor):
         self._note_stream(x, plan, "pairs", cold=True)
         return sims
 
-    def _patch(self, sims, xt, sub_plan, reducer_fn, t) -> torch.Tensor:
+    def _patch(self, sims, xt, sub_plan, reducer_fn, t,
+               mesh=None) -> torch.Tensor:
         """Invalidate rows/cols ``t`` to -inf and max-scatter the sub-plan's
-        blocks (computed from the capacity-padded table ``xt``) in place,
-        in this order on the current stream, then finish the matrix."""
+        blocks (computed from the capacity-padded table ``xt``, over
+        ``mesh``'s ranks) in place, in this order on the current stream,
+        then finish the matrix."""
         sims[t, :] = float("-inf")
         sims[:, t] = float("-inf")
         if sub_plan is not None:
             for b, blocks in run_reducers_bucketed(
-                    xt, sub_plan, reducer_fn, combine="buckets",
+                    xt, sub_plan, reducer_fn, mesh=mesh, combine="buckets",
                     device=xt.device):
                 _scatter_blocks(sims, blocks,
                                 torch.as_tensor(b.idx, device=xt.device),
@@ -257,7 +265,6 @@ class StreamingExecutor(Executor):
         Returns a copy of the live (m, m) block of the maintained matrix,
         which later edits leave as it is.
         """
-        _no_mesh(mesh)
         x = as_table(x, device)
         self._count("calls")
         cold = (self._sims is None or self._fn is not reducer_fn
@@ -266,7 +273,7 @@ class StreamingExecutor(Executor):
             assert plan_provider is not None, (
                 "cold streaming rebuild needs the full plan")
             return self._rebuild(x, plan_provider(), reducer_fn, m,
-                                 use_kernel=use_kernel)
+                                 mesh=mesh, use_kernel=use_kernel)
 
         sims = self._sims
         if m > sims.shape[0]:                     # capacity doubled
@@ -278,7 +285,7 @@ class StreamingExecutor(Executor):
             sub = (delta.sub_plan if delta.sub_plan is not None
                    and len(delta.dirty_rows) else None)
             sims = self._patch(sims, self._at_capacity(x), sub, reducer_fn,
-                               _ids(touched, x.device))
+                               _ids(touched, x.device), mesh)
         self._sims = sims
         self._count_delta(delta, len(touched))
         self._note_delta(
@@ -300,10 +307,10 @@ class StreamingExecutor(Executor):
         substrate and adopt the (mx, my) matrix as streaming state.
         Payload-carrying outputs (trailing dims — the skew join) execute
         identically but are not adopted as patchable state."""
-        _no_mesh(mesh)
         self._count("calls")
         return self._rebuild_x2y(_as_tables(tables, device), plan,
-                                 reducer_fn, shape, use_kernel=use_kernel)
+                                 reducer_fn, shape, mesh=mesh,
+                                 use_kernel=use_kernel)
 
     @classmethod
     def _at_rect_capacity(cls, s: torch.Tensor) -> torch.Tensor:
@@ -312,11 +319,12 @@ class StreamingExecutor(Executor):
         py = cls._cap(s.shape[1]) - s.shape[1]
         return F.pad(s, (0, py, 0, px)) if px or py else s
 
-    def _rebuild_x2y(self, tables, plan, reducer_fn, shape, *,
+    def _rebuild_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                      use_kernel=False):
         xt, yt = tables
         sims = self._sub.run_x2y((xt, yt), plan, reducer_fn, shape,
-                                 use_kernel=use_kernel, device=xt.device)
+                                 mesh=mesh, use_kernel=use_kernel,
+                                 device=xt.device)
         if sims.dim() == 2:
             self._sims_x2y = self._at_rect_capacity(sims)   # a new tensor
             self._fn_x2y = reducer_fn
@@ -324,17 +332,19 @@ class StreamingExecutor(Executor):
         self._note_stream(xt, plan, "x2y", cold=True)
         return sims
 
-    def _patch_x2y(self, sims, xt, yt, sub_plan, reducer_fn, tx, ty):
+    def _patch_x2y(self, sims, xt, yt, sub_plan, reducer_fn, tx, ty,
+                   mesh=None):
         """The rectangular :meth:`_patch`: rows ``tx`` and columns ``ty``
-        invalidated and the sub-plan's cross blocks max-scattered in
-        place, in this order, then the matrix finished."""
+        invalidated and the sub-plan's cross blocks (over ``mesh``'s
+        ranks) max-scattered in place, in this order, then the matrix
+        finished."""
         sims[tx, :] = float("-inf")
         sims[:, ty] = float("-inf")
         if sub_plan is not None:
             dev = xt.device
             for b, blocks in run_reducers_x2y_bucketed(
-                    (xt, yt), sub_plan, reducer_fn, combine="buckets",
-                    device=dev):
+                    (xt, yt), sub_plan, reducer_fn, mesh=mesh,
+                    combine="buckets", device=dev):
                 _scatter_blocks_x2y(
                     sims, blocks, *(torch.as_tensor(a, device=dev) for a in
                                     (b.idx, b.mask, b.yidx, b.ymask)))
@@ -353,7 +363,6 @@ class StreamingExecutor(Executor):
         columns are invalidated and the dirty reducers' rect sub-plan is
         recomputed and scattered back — the two-sided analogue of
         :meth:`apply_delta`.  Returns a copy of the live (mx, my) block."""
-        _no_mesh(mesh)
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         mx, my = shape
@@ -363,7 +372,7 @@ class StreamingExecutor(Executor):
             assert plan_provider is not None, (
                 "cold streaming rebuild needs the full rect plan")
             return self._rebuild_x2y((xt, yt), plan_provider(), reducer_fn,
-                                     shape, use_kernel=use_kernel)
+                                     shape, mesh=mesh, use_kernel=use_kernel)
 
         sims = self._sims_x2y
         if mx > sims.shape[0] or my > sims.shape[1]:  # capacity doubled
@@ -379,7 +388,7 @@ class StreamingExecutor(Executor):
             executed = sub is not None
             sims = self._patch_x2y(
                 sims, self._at_capacity(xt), self._at_capacity(yt), sub,
-                reducer_fn, _ids(tx, xt.device), _ids(ty, xt.device))
+                reducer_fn, _ids(tx, xt.device), _ids(ty, xt.device), mesh)
         self._sims_x2y = sims
         self._count_delta(delta, len(tx) + len(ty))
         self._note_delta(xt, delta, "delta_x2y", executed=executed)
@@ -418,7 +427,6 @@ class StreamingExecutor(Executor):
         the capacity-padded table signature already served.  Returns the
         number of shapes warmed (also counted in
         ``stats()['warmed_shapes']``)."""
-        _no_mesh(mesh)
         if not shapes:
             return 0
         x = as_table(x, device)
@@ -433,7 +441,7 @@ class StreamingExecutor(Executor):
         for shape in shapes:
             R, width = int(shape[0]), int(shape[1])
             self._patch(scratch, xt, self._warm_plan(R, width), reducer_fn,
-                        t)
+                        t, mesh)
         _sync(scratch)
         self._count("warmed_shapes", len(shapes))
         return len(shapes)
@@ -443,7 +451,6 @@ class StreamingExecutor(Executor):
         """Rectangular warmup: run the :meth:`apply_delta_x2y` path once
         for every ``(rows, x width, y width)`` shape
         (``IncrementalX2YPlanner.delta_shapes()``), on a scratch matrix."""
-        _no_mesh(mesh)
         if not shapes:
             return 0
         xt, yt = _as_tables(tables, device)
@@ -458,7 +465,7 @@ class StreamingExecutor(Executor):
         for shape in shapes:
             R, wx, wy = (int(shape[0]), int(shape[1]), int(shape[2]))
             self._patch_x2y(scratch, xt, yt, self._warm_plan(R, wx, wy),
-                            reducer_fn, t, t)
+                            reducer_fn, t, t, mesh)
         _sync(scratch)
         self._count("warmed_shapes", len(shapes))
         return len(shapes)

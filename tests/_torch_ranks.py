@@ -130,3 +130,129 @@ def cuda_paths(rank, world, w, x, wx, wy, xx, yy):
     out["launches"] = _build.launch_counts()
     out["builds"] = _build.build_counts()
     return out
+
+
+# ------------------------------------------------- reducer rows over a group
+MESH_PATHS = (("dense", False), ("bucketed", False), ("bucketed", True),
+              ("fused", False))
+MESH_METRICS = ("dot", "cosine")
+
+
+def ledger_fields(rec) -> dict:
+    """The fields of a comm-ledger record (either package's)."""
+    return {k: getattr(rec, k) for k in (
+        "executor", "workload", "predicted_rows", "lb_rows", "plan_slots",
+        "measured_slots", "d", "itemsize", "replication", "assembled_bytes",
+        "local_bytes", "residual_bytes", "anomaly", "meta")}
+
+
+def _gathers() -> float:
+    return REGISTRY.counter_total("collective.calls", op="all_gather")
+
+
+def mesh_paths(rank, world, pairs_case, x2y_case):
+    """``dense``, ``bucketed`` (also ``use_kernel=True``) and ``fused`` on
+    the CPU with the default group passed as ``mesh``: A2A on
+    ``pairs_case = (w, x)`` and X2Y on ``x2y_case = (wx, wy, x, y)``, each
+    with the dot and cosine metrics.  Per path: the matrices, the
+    all-gathers it made, its ledger records and (rank 0) its plans' arrays;
+    then the same A2A with ``mesh=None`` (which must make no collective),
+    and a plan not padded to the group's size (which must raise)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import plan_a2a
+    from repro_torch.mapreduce import build_plan
+    from repro_torch.mapreduce.allpairs import _block_fn
+    torch.set_num_threads(1)
+    group = dist.group.WORLD
+    w, x = pairs_case
+    wx, wy, xx, yy = x2y_case
+    out = {}
+    for name, uk in MESH_PATHS:
+        for metric in MESH_METRICS:
+            ex = make_executor(name)
+            seq, before = LEDGER.seq, _gathers()
+            s, plan, _ = pairwise_similarity(
+                x, q=1.0, weights=w, metric=metric, executor=ex, mesh=group,
+                use_kernel=uk, device="cpu")
+            sx, xplan, _ = x2y_similarity(
+                xx, yy, q=1.0, wx=wx, wy=wy, metric=metric, executor=ex,
+                mesh=group, use_kernel=uk, device="cpu")
+            rec = {"pairs": s.numpy(), "x2y": sx.numpy(),
+                   "all_gathers": _gathers() - before,
+                   "ledger": [ledger_fields(r)
+                              for r in LEDGER.records(seq)]}
+            if rank == 0:
+                rec["plans"] = (dataclasses.asdict(plan),
+                                dataclasses.asdict(xplan))
+            before = _gathers()
+            local, _, _ = pairwise_similarity(
+                x, q=1.0, weights=w, metric=metric, executor=name,
+                use_kernel=uk, device="cpu")
+            rec["local"] = local.numpy()
+            rec["local_all_gathers"] = _gathers() - before
+            out[(name, uk, metric)] = rec
+    plan = build_plan(plan_a2a(w, 1.0))
+    uneven = [b.R for b in plan.buckets if b.R % world]
+    assert uneven, "the profile's plan must have a bucket to refuse"
+    for name, uk in MESH_PATHS:
+        try:
+            make_executor(name).run_pairs(x, plan, _block_fn("dot", uk),
+                                          len(w), mesh=group, device="cpu")
+        except ValueError as e:
+            out[("uneven", name, uk)] = str(e)
+    return out
+
+
+def stream_paths(rank, world, x, w, rows, row_weight):
+    """``PairwiseService(executor='streaming', mesh=group)`` on the CPU:
+    ``load_table`` then one ``add_input`` per row of ``rows``; the last
+    matrix, the live ids and the table, and the executor's stats."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    svc = PairwiseService(1.0, executor="streaming",
+                          mesh=dist.group.WORLD, device="cpu")
+    sims, _ = svc.load_table(x, w)
+    infos = []
+    for row in rows:
+        sims, info = svc.add_input(row, row_weight)
+        infos.append(info["recompute_fraction"])
+    act = svc._planner.active_ids()
+    return {"sims": sims.numpy(), "active": act,
+            "table": svc._table[act],
+            "weights": svc._planner.active_weights(),
+            "recompute_fractions": infos, "stats": svc.executor_stats(),
+            "all_gathers": _gathers()}
+
+
+def dryrun_paths(rank, world, m, d, q):
+    """The engine's dry run on the CPU over the default group: the
+    planner's dense, bucketed, fused and sharded rows and the naive row
+    (plans padded to the group's size), the coded frontier, then the
+    streaming delta (local), on the reference's Zipf profile; and the
+    bytes of the sharded all-gather's tensor from the stacked groups."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun_engine as de
+    from repro_torch.launch.roofline import H100_SXM
+    torch.set_num_threads(1)
+    group = dist.group.WORLD
+    kw = dict(device="cpu", hw=H100_SXM)
+    w = de.profile(m, q, True)
+    rows, schema, plan, _ = de.engine_rows(w, q, m, d, group, **kw)
+    coded = de.analyze_coded(plan, m, d,
+                             f"coded-frontier[{schema.algorithm}]", group,
+                             **kw)
+    stream = de.analyze_streaming(w, q, m, d, "streaming-delta[insert]",
+                                  **kw)
+    ex = make_executor("sharded")
+    groups = ex._groups_for(plan, ex.partition(plan, world))
+    local = sum(int(np.prod(i.shape[1:])) * i.shape[2] for i, _k, _r in
+                groups)
+    return {"rows": rows + [coded, stream],
+            "sharded_gather_tensor_bytes": world * local * 4,
+            "report": de.report_lines(rows + [coded, stream])}

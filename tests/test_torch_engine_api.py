@@ -174,9 +174,11 @@ def test_lower_raises(executor):
 
 
 def test_streaming_refuses_a_mesh():
+    """Streaming takes a process group now (``tests/test_torch_mesh.py``)
+    and refuses a mesh that is not one."""
     plan = port_mr.build_plan(plan_a2a(np.full(6, 0.2), 1.0))
     ex = port_mr.make_executor("streaming")
     x = np.ones((6, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         ex.run_pairs(x, plan, _block_fn("dot", False), 6, mesh=object(),
                      device="cpu")

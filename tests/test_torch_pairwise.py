@@ -196,7 +196,10 @@ def test_single_input_degenerate():
 
 @pytest.mark.parametrize("executor", EXECUTORS)
 def test_mesh_is_not_ported_yet(executor):
-    with pytest.raises(NotImplementedError):
+    """Once NotImplementedError; ``mesh=`` is ported now (a process group,
+    ``tests/test_torch_mesh.py``), so a mesh that is not a process group
+    raises ``TypeError`` before any planning."""
+    with pytest.raises(TypeError, match="ProcessGroup"):
         port_mr.pairwise_similarity(_table(0, 6, 3), q=1.0,
                                     weights=np.full(6, 0.2), mesh=object(),
                                     executor=executor, device="cpu")

@@ -325,13 +325,16 @@ def test_source_maps_refuse_int32_overflow():
 
 @pytest.mark.parametrize("executor", ["dense", "bucketed", "fused"])
 def test_mesh_on_other_executors_still_raises(executor):
+    """These executors once refused every mesh; they now split reducer
+    rows over a process group (``tests/test_torch_mesh.py``), and still
+    raise on a mesh that is not one, before planning and at run time."""
     x = _table(0, 6, 3)
-    with pytest.raises(NotImplementedError, match="'sharded' and 'coded'"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         port_mr.pairwise_similarity(x, q=1.0, weights=np.full(6, 0.2),
                                     mesh=object(), executor=executor,
                                     device="cpu")
     plan = port_mr.build_plan(plan_a2a(np.full(6, 0.2), 1.0))
-    with pytest.raises(NotImplementedError, match="'sharded' and 'coded'"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         port_mr.make_executor(executor).run_pairs(
             x, plan, _block_fn("dot", False), 6, mesh=object(),
             device="cpu")
