@@ -78,7 +78,23 @@ just before it and read just after):
   prefill_32k length with the batch cut to 1, again against the plain
   versions (flash on three heads; phase 14); decode through
   ``BatchedServer`` (4 slots, 8 requests; phase 15), which reaches no
-  kernel.
+  kernel;
+* LM training (phase 22), through the non-kernel route the reference
+  trains on (neither kernel has a backward): (a) one fp32
+  ``make_train_step`` step of jamba-1.5-large-398b-smoke (attention,
+  Mamba, MoE; ``remat='full'``, microbatch 2) on the card against the CPU
+  from the same weights: loss, grad norm, every parameter and moment; (b)
+  ``stablelm-1.6b`` whole (24 layers, d_model 2048, 1.44 B parameters,
+  random weights from seed 0) trained for 20 steps on
+  ``PackedLMDataset`` batches of 4 x 2048 through
+  ``repro_torch.launch.train_lm.Trainer`` (bf16, fp32 moments, remat
+  'full'), checkpointed at step 10 and resumed in a fresh trainer: every
+  loss and grad norm finite, the loss falling, no kernel launched, the
+  restored weights, moments, step and data cursor equal to the saved ones
+  bit for bit and the next batch the same; step ms, tokens/s, peak
+  allocation and the model FLOP share of the card's bf16 peak printed;
+  (c) both LM kernel wrappers, and the loss on the kernel route, refuse
+  autograd on the card.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
 source, all started together) and prints ptxas's registers, shared memory
@@ -179,7 +195,16 @@ from repro_torch.launch.roofline import (  # noqa: E402
 )
 from repro_torch.kernels.ssd.ref import ssd_scan_chunked  # noqa: E402
 from repro_torch.kernels.ssd.ssd import ssd_scan_heads  # noqa: E402
+from repro_torch.data import PackedLMDataset  # noqa: E402
+from repro_torch.launch.train_lm import Trainer, train  # noqa: E402
 from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    AdamWConfig,
+    init_state,
+    make_train_step,
+    state_to_reference,
+)
 from repro_torch.serve import (  # noqa: E402
     BatchedServer,
     PairwiseService,
@@ -2454,6 +2479,298 @@ def phase_lm_decode() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- training
+# (a) card against CPU: the reference's parameter tolerance
+# (tests/test_train_step.py), fp32 with TF32 off on both devices; the
+# hybrid (attention, Mamba, MoE) and two models without MoE routing, whose
+# comparison no router near-tie can tip
+TRAIN_CHECK_ARCHS = ("jamba-1.5-large-398b-smoke", "mamba2-370m-smoke",
+                     "gemma3-4b-smoke")
+TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_CHECK_MICRO = 4, 64, 2
+TRAIN_TOL = dict(rtol=2e-3, atol=2e-4)
+# (b) stablelm-2-1.6b (hf:stabilityai/stablelm-2-1_6b) whole
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "stablelm-1.6b", 4, 2048
+TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_WARMUP = 20, 10, 2
+# the step-10 checkpoint (14.4 GB) goes under the checkout's build/
+TRAIN_WORK_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def train_batch(vocab: int, B: int, S: int, seed: int = SEED) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "targets": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "mask": (rng.random((B, S)) > 0.1).astype(np.float32)}
+
+
+def expert_choices(model, batch: dict, microbatch: int) -> list:
+    """Per MoE layer and microbatch, the experts each token chose (sorted)
+    and the gap between its k-th and (k+1)-th router probability: the
+    train step's routing, since its forward runs the same operations on
+    the same weights and microbatches."""
+    seen, real = [], model_blocks.moe_apply
+
+    def spy(params, x, *, top_k, capacity_factor):
+        with fgg.ieee_fp32():
+            probs = torch.softmax(x.float() @ params["router"], dim=-1)
+        top = torch.topk(probs, min(top_k + 1, probs.shape[-1]), dim=-1)
+        gap = (top.values[..., top_k - 1] - top.values[..., top_k]
+               if top.values.shape[-1] > top_k
+               else torch.ones_like(top.values[..., 0]))
+        seen.append((top.indices[..., :top_k].sort(dim=-1).values.cpu(),
+                     gap.cpu()))
+        return real(params, x, top_k=top_k, capacity_factor=capacity_factor)
+
+    n = batch["tokens"].shape[0] // microbatch
+    model_blocks.moe_apply = spy
+    try:
+        with torch.no_grad():
+            for i in range(microbatch):
+                model({"tokens": torch.as_tensor(
+                    batch["tokens"][i * n:(i + 1) * n], device=model.device)})
+    finally:
+        model_blocks.moe_apply = real
+    return seen
+
+
+def train_check(arch: str, device: str) -> dict:
+    """One fp32 train step (remat 'full', microbatch 2) of ``arch`` on the
+    card and on the CPU from the same weights, held at ``TRAIN_TOL``."""
+    cfg = get_config(arch)
+    flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                         use_pallas=False, remat="full")
+    opt = AdamWConfig(warmup_steps=0, peak_lr=1e-3)
+    batch = train_batch(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S)
+    models = {dev: build_model(cfg, flags, device=dev)
+              for dev in ("cpu", device)}
+    # the CPU's weights on the card, bit for bit (the generators differ)
+    models[device].load_state_dict(models["cpu"].state_dict())
+    routing = None
+    if cfg.num_experts:
+        (cpu_r, dev_r) = (expert_choices(m, batch, TRAIN_CHECK_MICRO)
+                          for m in models.values())
+        flipped = [(c_gap[(c_idx != d_idx).any(-1)])
+                   for (c_idx, c_gap), (d_idx, _) in zip(cpu_r, dev_r)]
+        routing = {
+            "tokens": sum(int(g.numel()) for _, g in cpu_r),
+            "flipped": sum(int(f.numel()) for f in flipped),
+            "flipped_max_gap": max((float(f.max()) for f in flipped
+                                    if f.numel()), default=None),
+            "min_gap": min(float(g.min()) for _, g in cpu_r)}
+    states = {dev: init_state(m, opt) for dev, m in models.items()}
+    out = {}
+    for dev, model in models.items():
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(
+            model, opt, microbatch=TRAIN_CHECK_MICRO)(states[dev], batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out[dev] = (state, metrics, time.perf_counter() - t0)
+    (cst, cm, cpu_s), (gst, gm, dev_s) = out["cpu"], out[device]
+    route = "" if routing is None else (
+        f"; routing: {routing['flipped']} of {routing['tokens']} token "
+        f"choices differ between card and CPU (largest CPU top-k gap among "
+        f"them {routing['flipped_max_gap']}, smallest in the batch "
+        f"{routing['min_gap']:.3e})")
+    log(f"phase 22 (a) {arch}: loss {gm['loss']:.6f} vs {cm['loss']:.6f}, "
+        f"grad norm {gm['grad_norm']:.6f} vs {cm['grad_norm']:.6f}{route}")
+    for k in ("loss", "grad_norm", "ce", "aux", "tokens", "lr"):
+        np.testing.assert_allclose(gm[k], cm[k], **TRAIN_TOL,
+                                   err_msg=f"phase 22 (a) {arch} {k}")
+    errs = {}
+    for part, g_tree, c_tree in (
+            [("params", gst["params"], cst["params"])]
+            + [(k, gst["opt"][k], cst["opt"][k]) for k in ("m", "v")]):
+        worst = 0.0
+        for n, c in c_tree.items():
+            g = g_tree[n].detach().cpu()
+            torch.testing.assert_close(
+                g, c.detach(), **TRAIN_TOL,
+                msg=lambda m, n=n: f"phase 22 (a) {arch} {part} {n}: {m}")
+            worst = max(worst, max_err(g, c.detach()))
+        errs[part] = worst
+    log(f"phase 22 (a) {arch} fp32 remat=full microbatch="
+        f"{TRAIN_CHECK_MICRO} B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: card == "
+        f"CPU; max abs err params {errs['params']:.3e}, m {errs['m']:.3e}, "
+        f"v {errs['v']:.3e} over {len(cst['params'])} tensors; step "
+        f"{dev_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    del models, states, out, cst, gst
+    return {"metrics_card": gm, "metrics_cpu": cm, "max_abs_err": errs,
+            "routing": routing}
+
+
+def phase_train_card_vs_cpu(device: str = "cuda") -> dict:
+    """Phase 22 (a): :func:`train_check` for each of
+    ``TRAIN_CHECK_ARCHS``."""
+    out = {arch: train_check(arch, device) for arch in TRAIN_CHECK_ARCHS}
+    free_cuda()
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits, so equality is bit for bit."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}
+                  .get(t.dtype, t.dtype))
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model FLOPs of one training step: 6 N per token plus attention's
+    QKᵀ and PV, forward and backward, over the causal half of S x S (the
+    plain path also computes the masked half; remat's recompute is not
+    counted either)."""
+    attn = 6 * cfg.num_layers * cfg.num_heads * cfg.head_dim_() * S * S * B
+    return 6.0 * n_params * B * S + attn
+
+
+def phase_train_full(device: str = "cuda", work_dir=None) -> dict:
+    """Phase 22 (b): stablelm-1.6b whole, 20 steps, a checkpoint at step
+    10 restored into a fresh trainer."""
+    cfg = get_config(TRAIN_ARCH)
+    kw = dict(flags=RuntimeFlags(param_dtype="bfloat16",
+                                 compute_dtype="bfloat16", use_pallas=False,
+                                 remat="full"),
+              opt_cfg=AdamWConfig(peak_lr=3e-4, warmup_steps=5,
+                                  total_steps=TRAIN_STEPS),
+              batch=TRAIN_B, seq=TRAIN_S, seed=SEED, device=device, keep=1)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if work_dir is not None:
+        Path(work_dir).mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work_dir) as d:
+        t0 = time.perf_counter()
+        run1 = train(cfg, TRAIN_SAVE_AT, log=log, ckpt_dir=d,
+                     ckpt_every=TRAIN_SAVE_AT, **kw)
+        run1_s = time.perf_counter() - t0
+        first = run1.pop("trainer")
+        n_params = sum(p.numel() for p in first.model.parameters())
+        assert run1["saved"] == [TRAIN_SAVE_AT], run1["saved"]
+        saved = {k: v.cpu() for k, v in _flat(state_to_reference(
+            first.model, first.state)).items()}
+        cursor = first.dataset.state()
+        want_next = next(iter(first.dataset))
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+        del first
+        free_cuda()
+        t0 = time.perf_counter()
+        second = Trainer(cfg, ckpt_dir=d, ckpt_every=0, **kw)
+        restore_s = time.perf_counter() - t0
+        assert second.start == TRAIN_SAVE_AT, second.start
+        restored = _flat(state_to_reference(second.model, second.state))
+        assert set(restored) == set(saved)
+        for k, v in saved.items():
+            r = restored[k].detach().cpu()
+            assert r.dtype == v.dtype and r.shape == v.shape, k
+            assert torch.equal(_bits(r), _bits(v)), f"phase 22 (b) {k}"
+        del restored, saved
+        assert second.dataset.state() == cursor, (second.dataset.state(),
+                                                  cursor)
+        peek = PackedLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                               batch_size=TRAIN_B, seed=SEED)
+        peek.restore(second.dataset.state())
+        got_next = next(iter(peek))
+        for k, v in want_next.items():
+            np.testing.assert_array_equal(got_next[k], v, err_msg=k)
+        t0 = time.perf_counter()
+        run2 = second.run(TRAIN_STEPS - 1, log=log)
+        run2_s = time.perf_counter() - t0
+        last = {}                        # the last step, under the profiler
+        prof = profile_request(
+            lambda: last.update(second.run(TRAIN_STEPS, log=None)),
+            "phase 22 (b) train step")
+        del second
+    peak = torch.cuda.max_memory_allocated()
+    free_cuda()
+    launched = counts()
+    assert launched == only(), launched
+    losses = run1["loss"] + run2["loss"] + last["loss"]
+    gnorms = run1["grad_norm"] + run2["grad_norm"] + last["grad_norm"]
+    assert len(losses) == TRAIN_STEPS
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), \
+        (losses, gnorms)
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    assert last5 < first5, (first5, last5)
+    steady = run1["seconds"][TRAIN_WARMUP:] + run2["seconds"][TRAIN_WARMUP:]
+    step_s = float(np.median(steady))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    peak_flops = HW.for_device(device).peak_flops
+    out = {"arch": TRAIN_ARCH, "params": n_params, "losses": losses,
+           "grad_norms": gnorms, "lr": run1["lr"] + run2["lr"] + last["lr"],
+           "step_seconds": run1["seconds"] + run2["seconds"],
+           "profiled_step_seconds": last["seconds"], "profile": prof,
+           "step_ms_median": step_s * 1e3,
+           "step_ms_p90": float(np.percentile(steady, 90)) * 1e3,
+           "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+           "flop_share": flops / step_s / peak_flops,
+           "peak_alloc_bytes": peak, "checkpoint_bytes": ckpt_bytes,
+           "run1_s": run1_s, "restore_s": restore_s,
+           "run2_s": run2_s, "launches": launched,
+           "loss_first5": first5, "loss_last5": last5}
+    log(f"phase 22 (b) {TRAIN_ARCH} whole ({n_params / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}) bf16 remat=full "
+        f"B={TRAIN_B} S={TRAIN_S}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(mean of first 5 {first5:.4f}, last 5 {last5:.4f}); step "
+        f"{out['step_ms_median']:.1f} ms median (p90 "
+        f"{out['step_ms_p90']:.1f}) over steps 3-10 and 13-19, "
+        f"{out['tokens_per_s']:.0f} tokens/s, model FLOP share "
+        f"{out['flop_share']:.3f} of the bf16 peak "
+        f"({flops / 1e12:.1f} TFLOP per step); peak allocation "
+        f"{peak / 1e9:.2f} GB; checkpoint {ckpt_bytes / 1e9:.2f} GB, "
+        f"restore {restore_s:.1f} s, bit-equal, cursor {cursor}, next "
+        f"batch equal; kernel launches {launched}")
+    return out
+
+
+def phase_train_refusal(device: str = "cuda") -> dict:
+    """Phase 22 (c): the kernel wrappers, and the loss on the kernel
+    route, raise under autograd on the card (before any launch)."""
+    before = counts()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v = randn(1, 64, 2, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64)
+    x, b = randn(1, 64, 2, 64), randn(1, 64, 2, 16)
+    la = -torch.rand((1, 64, 2), generator=gen, device=device)
+    cfg = get_config("jamba-1.5-large-398b-smoke")
+    model = build_model(cfg, RuntimeFlags(param_dtype="float32",
+                                          compute_dtype="float32"),
+                        device=device).requires_grad_(True)
+    batch = {k: torch.from_numpy(a).to(device) for k, a in train_batch(
+        cfg.vocab_size, 2, 32).items()}
+    calls = {
+        "flash_attention_heads": lambda: flash_attention_heads(
+            q.requires_grad_(True), k, v),
+        "ssd_scan_heads": lambda: ssd_scan_heads(
+            x.requires_grad_(True), la, b, b),
+        "LMModel.loss(use_pallas=True)": lambda: model.loss(batch)}
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert "use_pallas=False" in str(e), (name, str(e))
+            refused[name] = str(e).split(":")[0]
+        else:
+            raise AssertionError(f"phase 22 (c) {name} did not refuse")
+    assert counts() == before, (counts(), before)
+    log(f"phase 22 (c) autograd through the kernel route refused on the "
+        f"card: {refused}; no launch")
+    del model
+    free_cuda()
+    return {"refused": refused}
+
+
 def lm_kernel_records(lm: dict) -> list:
     """The ``kernels`` records of the LM path: times, bound and errors of
     the timed bf16 prefill (phase 13), with the fp32 (phase 12) and 32k
@@ -2551,6 +2868,10 @@ def main() -> int:
     free_cuda()
     lm = {"fp32": phase_lm_fp32(), "bf16": phase_lm_bf16(),
           "long": phase_lm_long(), "decode": phase_lm_decode()}
+    free_cuda()                          # the 12.37 B serving model is gone
+    train = {"card_vs_cpu": phase_train_card_vs_cpu(),
+             "full": phase_train_full(work_dir=TRAIN_WORK_DIR),
+             "refusal": phase_train_refusal()}
 
     tot = timing["totals"]
     bound_ms, bound_by = bound(work, PEAK_FP32_CUDA_CORES)
@@ -2711,7 +3032,7 @@ def main() -> int:
             "pairwise_gram": pgram, "timing_new": timing_new,
             "some_pairs": some, "stream_a2a": stream,
             "stream_x2y": stream_x2y, "sharded_one_rank": one_rank,
-            "ranks": ranks, "mesh": mesh, "lm": lm,
+            "ranks": ranks, "mesh": mesh, "lm": lm, "train": train,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

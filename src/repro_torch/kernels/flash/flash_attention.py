@@ -14,7 +14,8 @@ bytes runs on the tensor cores, through TMA and wgmma; everything else in
 fp32 FMA) or raises; on CPU tensors it
 runs ``mha_ref``, the plain version.  There is no fallback from the card to
 the plain version.  ``flash_attention`` keeps the reference's one-head
-signature on top of it.  Forward only, like the reference.
+signature on top of it.  Forward only, like the reference: with autograd
+on and an operand that requires grad the wrapper raises on either device.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..pairwise.fused_gather_gram import _device_of, _stream
+from ..pairwise.fused_gather_gram import _device_of, _stream, \
+    refuse_autograd
 from .ref import mha_ref
 
 __all__ = ["flash_attention", "flash_attention_heads", "HEAD_DIMS"]
@@ -55,7 +57,9 @@ def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``h // (Hq / Hkv)``.
 
     CPU tensors run the plain version; CUDA tensors (fp32 or bf16, one
-    dtype, D in ``HEAD_DIMS``) launch the kernel once or raise."""
+    dtype, D in ``HEAD_DIMS``) launch the kernel once or raise.  Either
+    raises under autograd: there is no backward."""
+    refuse_autograd("flash_attention_heads", q, k, v)
     if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]):
         raise ValueError(f"want q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D); got "

@@ -220,6 +220,19 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would have to differentiate through kernel
+    ``name``.  No hand-written kernel has a backward (nor has the
+    reference's Pallas kernel), and a launch through ctypes would cut the
+    gradient without a word; the plain version on CPU tensors refuses too,
+    so both devices behave alike."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the reference's kernel): "
+            "train through the non-kernel route, "
+            "RuntimeFlags(use_pallas=False); see ROADMAP.md")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 

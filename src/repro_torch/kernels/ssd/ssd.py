@@ -13,7 +13,9 @@ design) or raises; on CPU tensors it runs ``ssd_scan_chunked``, the plain
 version.  There is no fallback from the card to the plain version.  ``b``
 and ``c`` may be broadcast views over the head axis (stride 0): the kernel
 reads them through their strides, so nothing is copied per head.
-``ssd_scan`` keeps the reference's one-head signature on top of it.
+Forward only, like the reference: with autograd on and an operand that
+requires grad the wrapper raises on either device.  ``ssd_scan`` keeps
+the reference's one-head signature on top of it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..pairwise.fused_gather_gram import _device_of, _stream
+from ..pairwise.fused_gather_gram import _device_of, _stream, \
+    refuse_autograd
 from .ref import ssd_scan_chunked
 
 __all__ = ["ssd_scan", "ssd_scan_heads", "MAX_CHUNK", "MAX_N", "MAX_P"]
@@ -40,7 +43,8 @@ def ssd_scan_heads(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 
     CPU tensors run the plain version; CUDA tensors (x, b, c of one dtype,
     fp32 or bf16; N ≤ 128, P ≤ 64, chunk ≤ 128) launch the kernel once or
-    raise."""
+    raise.  Either raises under autograd: there is no backward."""
+    refuse_autograd("ssd_scan_heads", x, log_a, b, c)
     if (x.dim() != 4 or log_a.shape != x.shape[:3] or b.dim() != 4
             or b.shape[:3] != x.shape[:3] or c.shape != b.shape):
         raise ValueError(f"want x (B, S, H, P), log_a (B, S, H), b/c (B, S, "

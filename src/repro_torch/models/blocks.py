@@ -5,15 +5,23 @@ An architecture is a repeating *pattern* of LayerSpecs (Jamba: 1 attention
 unrolled tail.  The reference scans the repetitions with ``lax.scan`` over
 stacked weights; the port keeps one :class:`Layer` per layer, in order
 (layer ``block * len(pattern) + i`` is position ``i`` of repetition
-``block``), and runs them in a Python loop.  No remat on the serving path.
+``block``), and runs them in a Python loop (:func:`stack_apply`).  With
+autograd on, each repetition is rematerialised as the reference's scan
+body is (``RuntimeFlags.remat``); the tail and the serving path are not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .layers import (
     AttnSpec,
@@ -28,7 +36,8 @@ from .layers import (
 from .mamba import mamba_apply, mamba_init_cache, mamba_shapes
 from .moe import moe_apply, moe_shapes
 
-__all__ = ["LayerSpec", "StackDef", "Layer", "stack_init_cache"]
+__all__ = ["LayerSpec", "StackDef", "Layer", "stack_apply",
+           "stack_init_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +135,73 @@ def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None):
             y = mlp_apply(layer.ffn, h)
         x = x + y
     return x, (None if cache is None else {"mixer": mc}), aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the products without batch dimensions (the weight projections, the
+    router, the unembedding), recompute the rest.  ``torch.einsum`` lowers
+    every product to ``bmm``: one with no batch dimension (``bsd,dhk``)
+    folds all free axes into the rows and reaches ``bmm`` with a batch of
+    1, while one with batch dimensions (the attention scores ``bshgd,bthd``
+    over b and h, the experts ``becd,edf`` over e) has a batch of their
+    product.  A plain 2-D ``@`` reaches ``mm``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, flags):
+    """``fn`` as the backward sees it under ``flags.remat``: ``'none'``
+    keeps every activation, ``'full'`` only the inputs, ``'dots'`` also
+    the products ``_dots_policy`` keeps."""
+    if flags.remat == "none":
+        return fn
+    if flags.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if flags.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {flags.remat!r}: want 'none', 'full' or 'dots'")
+
+
+def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
+                positions=None):
+    """Every layer in order.  Returns (x, new_cache, aux_sum).
+
+    Without a cache and with autograd on, each repetition of the pattern
+    (the reference's scan body) runs under :func:`_remat`; the tail layers
+    are not rematerialised, as in the reference."""
+    P = len(stack.pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = None if cache is None else []
+
+    def superblock(x, block):
+        aux_sb = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in layers[block * P:(block + 1) * P]:
+            x, _, a = _block_apply(layer, x, cfg, flags, positions=positions)
+            aux_sb = aux_sb + a
+        return x, aux_sb
+
+    n_scanned = 0
+    if cache is None:
+        run = _remat(superblock, flags) if torch.is_grad_enabled() \
+            else superblock
+        for block in range(stack.n_blocks):
+            x, a = run(x, block)
+            aux = aux + a
+        n_scanned = stack.n_blocks * P
+    for i in range(n_scanned, len(layers)):
+        x, nc, a = _block_apply(
+            layers[i], x, cfg, flags,
+            cache=None if cache is None else cache[i], positions=positions)
+        if cache is not None:
+            new_cache.append(nc)
+        aux = aux + a
+    return x, new_cache, aux
 
 
 def stack_init_cache(stack: StackDef, cfg, flags, batch: int, max_len: int,

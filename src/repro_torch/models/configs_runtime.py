@@ -6,9 +6,16 @@ attention through ``flash_attention_heads`` and the Mamba scan through
 ``ssd_scan_heads`` — each launches its hand-written kernel on CUDA tensors
 and runs its plain version on CPU tensors —, while ``False`` takes the
 reference's non-kernel path (``_grouped_attention`` and the ``ssd_impl``
-scan) on any device.  The reference's sharding and training knobs (remat,
-FSDP, sequence sharding, MoE placement, ZeRO, gradient compression) wait
-for the slices that read them (ROADMAP queue 1).
+scan) on any device.  Neither kernel has a backward (nor has the
+reference's), so training takes ``use_pallas=False``; the wrappers refuse
+autograd.
+
+Training reads ``remat`` (``'none' | 'full' | 'dots'``: what each
+repetition of the layer pattern keeps for the backward, in
+``blocks.stack_apply``) and ``grad_compression`` (``'none' | 'bf16' |
+'int8'``, in ``train.train_step``).  The reference's sharding knobs (FSDP,
+ZeRO-1, sequence sharding, MoE placement) wait for the LM sharding slice
+(ROADMAP queue 1, item 6.3).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ class RuntimeFlags:
     kv_quant: str = "none"           # 'none' | 'int8' (halves KV capacity)
     attn_probs_dtype: str = "float32"  # 'bfloat16' halves PV-matmul traffic
     capacity_factor: float = 1.25
+    remat: str = "full"              # 'none' | 'full' | 'dots'
+    grad_compression: str = "none"   # 'none' | 'bf16' | 'int8'
 
     @property
     def pdtype(self) -> torch.dtype:

@@ -36,12 +36,13 @@ __all__ = ["AttnSpec", "make_params", "rms_norm", "rope", "embed_shapes",
 # ---------------------------------------------------------------- utilities
 
 
-def make_params(shapes: dict, device,
-                gen: torch.Generator) -> nn.ParameterDict:
+def make_params(shapes: dict, device, gen: torch.Generator,
+                requires_grad: bool = False) -> nn.ParameterDict:
     """``{name: (shape, dtype, init)}`` -> parameters on ``device``; init is
     a normal scale, ``"zeros"`` or ``"ones"``.  Normals are drawn in fp32
     and cast, as the reference's ``_normal`` does, a slab at a time so a
-    full-width expert stack never needs a whole fp32 copy."""
+    full-width expert stack never needs a whole fp32 copy.  Serving keeps
+    ``requires_grad=False``; training turns it on."""
     out = nn.ParameterDict()
     for name, (shape, dtype, init) in shapes.items():
         t = torch.empty(shape, dtype=dtype, device=device)
@@ -57,7 +58,7 @@ def make_params(shapes: dict, device,
                 blk.copy_(torch.randn(blk.shape, generator=gen,
                                       dtype=torch.float32, device=device)
                           .mul_(init))
-        out[name] = nn.Parameter(t, requires_grad=False)
+        out[name] = nn.Parameter(t, requires_grad=requires_grad)
     return out
 
 
@@ -68,12 +69,40 @@ def _ein(eq: str, *ops: torch.Tensor) -> torch.Tensor:
         return torch.einsum(eq, *(o.to(dt) for o in ops))
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with a ``(1 + gamma)`` scale: fp32 math inside, x's dtype
-    out.  Forward only (the reference's custom VJP comes with training)."""
+def _rms_norm_fwd(x, gamma, eps):
     x32 = x.float()
     rstd = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
-    return (x32 * rstd * (1.0 + gamma.float())).to(x.dtype)
+    return (x32 * rstd * (1.0 + gamma.float())).to(x.dtype), rstd
+
+
+def _rms_norm_bwd(x, rstd, gamma, g):
+    x32, g32 = x.float(), g.float()
+    xhat = x32 * rstd
+    dxhat = g32 * (1.0 + gamma.float())
+    dgamma = (g32 * xhat).sum(dim=tuple(range(x.dim() - 1))).to(gamma.dtype)
+    dx = rstd * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dgamma
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        out, rstd = _rms_norm_fwd(x, gamma, eps)
+        ctx.save_for_backward(x, rstd, gamma)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dgamma = _rms_norm_bwd(*ctx.saved_tensors, g)
+        return dx, dgamma, None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with a ``(1 + gamma)`` scale: fp32 math inside, x's dtype
+    out.  The reference's hand-written VJP: the backward keeps the fp32
+    chain in one expression and returns ``dx`` in x's dtype, ``dgamma`` in
+    gamma's; ``eps`` is not differentiated."""
+    return _RMSNorm.apply(x, gamma, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):

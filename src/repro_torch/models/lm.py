@@ -2,17 +2,23 @@
 
 ``build_model(cfg, flags, device=...)`` returns an :class:`LMModel`, an
 ``nn.Module`` holding its weights (random, from a seeded generator on the
-device, at the reference's init scales) and exposing the serving calls:
+device, at the reference's init scales) and exposing:
 
   forward(batch, cache=None, positions=None) -> (logits, new_cache, aux)
+  loss(batch)                                -> (scalar, metrics)  [train]
   init_cache(batch_size, max_len)            -> decode cache (one per layer)
-  decode_step(cache, batch)                  -> (logits, new_cache)
+  decode_step(cache, batch)                  -> (logits, new_cache) [serve]
 
-batch: ``{'tokens' (B, S)}``, plus ``'pos'`` (an int) for ``decode_step``.
-:func:`load_reference_params` fills a model from the JAX package's
-parameter tree (numpy leaves), so both packages can run the same weights.
-The encoder, cross-attention and the audio / vision frontends are not
-ported yet (ROADMAP.md); configs that need them raise.
+batch: ``{'tokens' (B, S)}``, plus ``'targets'`` and ``'mask'`` (B, S) for
+``loss`` and ``'pos'`` (an int) for ``decode_step``.  Serving builds no
+autograd graph (``decode_step`` runs under ``torch.no_grad``, and serving
+weights do not require grad); ``loss`` is differentiable on the non-kernel
+route.  :func:`load_reference_params` fills a model from the JAX
+package's parameter tree (numpy leaves) and :func:`export_reference_params`
+builds that tree from the model, so weights, optimizer moments and
+checkpoints cross between the packages both ways.  The encoder,
+cross-attention and the audio / vision frontends are not ported yet
+(ROADMAP.md); configs that need them raise.
 """
 
 from __future__ import annotations
@@ -25,12 +31,14 @@ from torch import nn
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .blocks import Layer, LayerSpec, StackDef, _block_apply, stack_init_cache
+from .blocks import Layer, LayerSpec, StackDef, stack_apply, \
+    stack_init_cache
 from .configs_runtime import RuntimeFlags
 from .layers import embed_apply, embed_shapes, make_params, rms_norm, \
     unembed_apply
 
-__all__ = ["LMModel", "build_model", "load_reference_params"]
+__all__ = ["LMModel", "build_model", "load_reference_params",
+           "export_reference_params", "reference_paths", "reference_ranks"]
 
 
 def _specs_to_stack(kinds: list[dict], period: int) -> StackDef:
@@ -51,7 +59,9 @@ def _specs_to_stack(kinds: list[dict], period: int) -> StackDef:
 
 
 class LMModel(nn.Module):
-    """A decoder-only LM on one device (``None`` means CUDA)."""
+    """A decoder-only LM on one device (``None`` means CUDA).  Its weights
+    do not require grad until ``train.init_state`` (or
+    ``state_from_reference``) turns them on."""
 
     def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None,
                  *, device=None, seed: int = 0):
@@ -82,33 +92,46 @@ class LMModel(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f.device
 
-    @torch.no_grad()
     def forward(self, batch: dict, *, cache: Optional[list] = None,
                 positions: Optional[torch.Tensor] = None):
         """Returns (logits, new_cache, aux).  Without a cache this is the
-        prefill: attention through the flash kernel and Mamba through the
-        SSD kernel on the kernel route."""
+        prefill (or the training forward): attention through the flash
+        kernel and Mamba through the SSD kernel on the kernel route."""
         cfg, flags = self.cfg, self.flags
         x = embed_apply(self.embed, batch["tokens"]).to(flags.cdtype)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        new_cache = None if cache is None else []
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, layer in enumerate(self.layers):
-            x, nc, a = _block_apply(
-                layer, x, cfg, flags,
-                cache=None if cache is None else cache[i],
-                positions=positions)
-            if cache is not None:
-                new_cache.append(nc)
-            aux = aux + a
+        x, new_cache, aux = stack_apply(
+            self.layers, self.stack, x, cfg, flags, cache=cache,
+            positions=positions)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
         return unembed_apply(self.embed, x), new_cache, aux
+
+    def loss(self, batch: dict):
+        """Masked next-token cross-entropy plus 0.01 x the MoE balance loss:
+        ``(total, {'ce', 'aux', 'tokens'})``.  fp32 ``logsumexp`` minus the
+        gold logit, times ``mask`` (ones when absent), over
+        ``max(sum(mask), 1)``."""
+        logits, _, aux = self.forward(batch)
+        targets = batch["targets"].long()
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        tokens = mask.sum()
+        ce = nll.sum() / torch.clamp(tokens, min=1.0)
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "tokens": tokens}
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
         return stack_init_cache(self.stack, self.cfg, self.flags, batch_size,
                                 max_len, self.device)
 
+    @torch.no_grad()
     def decode_step(self, cache: list, batch: dict):
         """One-token step.  batch: ``{'tokens' (B, 1), 'pos' int}``; the
         cache is updated in place and returned."""
@@ -123,54 +146,125 @@ def build_model(cfg: ArchConfig, flags: Optional[RuntimeFlags] = None, *,
     return LMModel(cfg, flags, device=device, seed=seed)
 
 
+def _leaves(tree: dict, prefix: str = ""):
+    """(``'a/b/c'``, leaf) for every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def reference_paths(model: LMModel) -> dict:
+    """``{port parameter name: (reference path, block or None)}``: where
+    each parameter lives in the reference's tree (``'stack/pos0/ln1'``)
+    and, for a scanned layer, its index along the stacked leaf's leading
+    axis.  Anything the reference does per leaf (decay by rank, per-tensor
+    int8 compression) is done per reference leaf here.
+
+    The reference stacks the scanned layers' leaves along a leading
+    ``n_blocks`` axis (``stack/pos{i}/...``, layer ``block * len(pattern)
+    + i``) and keeps the tail layers' leaves as they are
+    (``stack/tail{j}/...``)."""
+    stack, P = model.stack, len(model.stack.pattern)
+    out = {}
+    for name, _ in model.named_parameters():
+        if not name.startswith("layers."):
+            out[name] = (name.replace(".", "/"), None)
+            continue
+        _, idx, rest = name.split(".", 2)
+        idx = int(idx)
+        if idx < stack.n_blocks * P:
+            pos, blk = f"pos{idx % P}", idx // P
+        else:
+            pos, blk = f"tail{idx - stack.n_blocks * P}", None
+        out[name] = (f"stack/{pos}/{rest.replace('.', '/')}", blk)
+    return out
+
+
+def reference_ranks(model: LMModel) -> dict:
+    """``{port parameter name: rank of its leaf in the reference's
+    tree}``: one more than the port's for a scanned layer (its leading
+    ``n_blocks`` axis).  The reference's AdamW decays a leaf of rank >= 2,
+    so the port decides decay from these ranks: scanned norms' gammas and
+    Mamba's ``dt_bias`` / ``a_log`` / ``d_skip`` / ``norm`` are decayed,
+    the same vectors in the tail and ``ln_f`` are not."""
+    paths = reference_paths(model)
+    return {n: p.dim() + (paths[n][1] is not None)
+            for n, p in model.named_parameters()}
+
+
+def export_reference_params(model: LMModel,
+                            values: Optional[dict] = None) -> dict:
+    """The reference's parameter tree (``LMModel.init``'s layout) of
+    ``values`` — ``{port parameter name: tensor}``, the model's own
+    parameters when ``None``, or anything keyed like them (optimizer
+    moments) — with detached tensor leaves on their device: scanned
+    layers restacked along ``n_blocks``, tail layers as they are.  The
+    inverse of :func:`load_reference_params`."""
+    if values is None:
+        values = dict(model.named_parameters())
+    leaves: dict = {}
+    for name, (path, blk) in reference_paths(model).items():
+        leaves.setdefault(path, []).append((blk, values[name].detach()))
+    tree: dict = {}
+    for path, parts in leaves.items():
+        *parents, key = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = parts[0][1] if parts[0][0] is None else torch.stack(
+            [t for _, t in sorted(parts, key=lambda bt: bt[0])])
+    return tree
+
+
 def _tensor(a) -> torch.Tensor:
-    """numpy (including JAX's bfloat16 arrays) -> CPU tensor."""
+    """numpy (including JAX's bfloat16 arrays) or a tensor -> tensor."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
 
 
+def named_from_reference(model: LMModel, tree: dict) -> dict:
+    """``{port parameter name: tensor}`` from a tree in the reference's
+    layout (numpy or tensor leaves; scanned leaves unstacked along their
+    leading ``n_blocks`` axis), on the leaves' device.  Every parameter
+    must be matched once, shape for shape, and every leaf used."""
+    flat = dict(_leaves(tree))
+    paths = reference_paths(model)
+    out = {}
+    for name, (path, blk) in paths.items():
+        if path not in flat:
+            raise ValueError(f"parameters not in the reference tree: "
+                             f"{name} ({path})")
+        t = _tensor(flat[path])
+        if blk is not None:
+            t = t[blk]
+        want = tuple(model.get_parameter(name).shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+                             f"port shape {want}")
+        out[name] = t
+    extra = set(flat) - {p for p, _ in paths.values()}
+    if extra:
+        raise ValueError(f"reference leaves the port has no parameter for: "
+                         f"{sorted(extra)}")
+    return out
+
+
 @torch.no_grad()
 def load_reference_params(model: LMModel, tree: dict) -> LMModel:
     """Fill ``model`` with the JAX package's parameters for the same
     config: ``tree`` is ``LMModel.init``'s tree with numpy leaves
-    (``jax.tree.map(np.asarray, params)``).  Scanned ``stack/pos{i}``
+    (``jax.tree.map(np.asarray, params)``) or the tree
+    :func:`export_reference_params` builds.  Scanned ``stack/pos{i}``
     leaves are unstacked along their leading ``n_blocks`` axis into layers
     ``block * len(pattern) + i``; ``tail{j}`` fills the layers after them.
     Every parameter must be matched once, shape for shape."""
-    filled = set()
-
-    def put(name: str, dst: torch.Tensor, src) -> None:
-        t = _tensor(src)
-        if tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
-                             f"port shape {tuple(dst.shape)}")
-        dst.copy_(t.to(dst.dtype))
-        filled.add(name)
-
-    def put_layer(idx: int, sub: dict, blk: Optional[int]) -> None:
-        layer = model.layers[idx]
-        for key, val in sub.items():
-            if isinstance(val, dict):
-                group = getattr(layer, key)
-                for k, a in val.items():
-                    put(f"layers.{idx}.{key}.{k}", group[k],
-                        a if blk is None else a[blk])
-            else:
-                put(f"layers.{idx}.{key}", getattr(layer, key),
-                    val if blk is None else val[blk])
-
-    put("embed.table", model.embed["table"], tree["embed"]["table"])
-    put("ln_f", model.ln_f, tree["ln_f"])
-    stack, P = model.stack, len(model.stack.pattern)
-    for i in range(P):
-        for blk in range(stack.n_blocks):
-            put_layer(blk * P + i, tree["stack"][f"pos{i}"], blk)
-    for j in range(len(stack.tail)):
-        put_layer(stack.n_blocks * P + j, tree["stack"][f"tail{j}"], None)
-    missing = {n for n, _ in model.named_parameters()} - filled
-    if missing:
-        raise ValueError(f"parameters not in the reference tree: "
-                         f"{sorted(missing)}")
+    for name, t in named_from_reference(model, tree).items():
+        p = model.get_parameter(name)
+        p.copy_(t.to(p.dtype))
     return model

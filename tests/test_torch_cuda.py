@@ -1080,3 +1080,72 @@ def test_batched_server_on_the_card(cuda):
     server.run()
     assert all(r.done and len(r.out) == 4 for r in reqs)
     assert all(0 <= t < cfg.padded_vocab() for r in reqs for t in r.out)
+
+
+# ------------------------------------------------------------------ training
+
+def test_kernel_wrappers_refuse_autograd_on_the_card(cuda):
+    """Neither LM kernel has a backward: with autograd on and an operand
+    that requires grad, the wrappers raise before any launch instead of
+    cutting the gradient."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 32, 2, 64), generator=g, device=cuda)
+               for _ in range(3))
+    x = torch.randn((1, 32, 2, 64), generator=g, device=cuda)
+    b = torch.randn((1, 32, 2, 16), generator=g, device=cuda)
+    la = -torch.rand((1, 32, 2), generator=g, device=cuda)
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError, match=r"use_pallas=False"):
+        flash_attention_heads(q.requires_grad_(True), k, v)
+    with pytest.raises(RuntimeError, match=r"use_pallas=False"):
+        ssd_scan_heads(x.requires_grad_(True), la, b, b)
+    assert _build.launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b-smoke",
+                                  "gemma3-4b-smoke", "mamba2-370m-smoke"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One fp32 train step (remat 'full', microbatch 2) from the same
+    weights on both devices, at the reference's parameter tolerance."""
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = get_config(arch)
+    flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                         use_pallas=False, remat="full")
+    opt = AdamWConfig(warmup_steps=0, peak_lr=1e-3)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 32)),
+             "targets": rng.integers(0, cfg.vocab_size, (4, 32)),
+             "mask": (rng.random((4, 32)) > 0.2).astype(np.float32)}
+    models = {d: build_model(cfg, flags, device=d) for d in ("cpu", cuda)}
+    states = {d: init_state(m, opt) for d, m in models.items()}
+    models[cuda].load_state_dict(models["cpu"].state_dict())
+    out = {d: make_train_step(m, opt, microbatch=2)(states[d], batch)
+           for d, m in models.items()}
+    (cst, cm), (gst, gm) = out["cpu"], out[cuda]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gm[k]), float(cm[k]), rtol=2e-3,
+                                   atol=2e-4)
+    for part in ("params", "m", "v"):
+        got = gst["params"] if part == "params" else gst["opt"][part]
+        want = cst["params"] if part == "params" else cst["opt"][part]
+        for n, w in want.items():
+            torch.testing.assert_close(got[n].detach().cpu(), w.detach(),
+                                       rtol=2e-3, atol=2e-4)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A state saved from the CPU restores onto the card bit for bit, bf16
+    included."""
+    from repro_torch.train import CheckpointManager
+    state = {"params": {"w": torch.randn(8, 8),
+                        "b": torch.randn(8).to(torch.bfloat16)},
+             "step": torch.tensor(3, dtype=torch.int32)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, state)
+    restored, manifest = mgr.restore(device=cuda)
+    assert manifest["step"] == 3
+    for k in ("w", "b"):
+        t = restored["params"][k]
+        assert t.device.type == "cuda" and t.dtype == state["params"][k].dtype
+        assert torch.equal(t.cpu(), state["params"][k])
+    assert int(restored["step"]) == 3

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` brings in neither JAX
-nor the JAX package, its sources name neither, and its entry points run on
-the card unless asked for the CPU (``device=None`` without a card raises)."""
+"""The port stands alone: importing ``repro_torch`` brings in neither JAX,
+the JAX package nor ``ml_dtypes``, its sources name none of them, and its
+entry points run on the card unless asked for the CPU (``device=None``
+without a card raises)."""
 
 import os
 import pathlib
@@ -47,7 +48,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "stream.base", "stream.delta", "stream.executor",
                 "stream.incremental", "stream.x2y", "compat", "launch",
                 "launch.roofline", "launch.dryrun_engine",
-                "launch.obs_report"):
+                "launch.obs_report", "launch.train_lm", "train",
+                "train.optimizer", "train.train_step", "train.checkpoint",
+                "train.elastic", "data", "data.pipeline"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
@@ -55,7 +58,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
-        "             or m.startswith('repro.'))\n"
+        "             or m.startswith('repro.') or m == 'ml_dtypes')\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(SRC),
@@ -68,7 +71,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
 
 def test_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
-                     r"(?!_)|from\s+repro(\.|\s)|import\s+repro\.)",
+                     r"(?!_)|from\s+repro(\.|\s)|import\s+repro\.|"
+                     r"import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
                      re.MULTILINE)
     files = sorted(PKG.rglob("*.py"))
     assert files
