@@ -94,7 +94,26 @@ just before it and read just after):
   bit for bit and the next batch the same; step ms, tokens/s, peak
   allocation and the model FLOP share of the card's bf16 peak printed;
   (c) both LM kernel wrappers, and the loss on the kernel route, refuse
-  autograd on the card.
+  autograd on the card;
+* the encoder, cross-attention and the frontend stubs (phase 23), bf16,
+  weights from seed 0: (a) ``whisper-large-v3`` whole (32 encoder and 32
+  decoder layers, 1.6 B parameters): the prefill of 4 x 448 decoder
+  tokens over 4 x 1500 precomputed audio frame embeddings ->
+  ``flash_attention`` once per decoder layer (the encoder and
+  cross-attention stay on plain attention, as in the reference), each
+  launch against its plain version and timed beside SDPA, the logits
+  against ``use_pallas=False``'s; the encoder alone; then a 432-token
+  prompt prefilled into a cache and 16 greedy ``decode_step`` ticks on
+  the precomputed ``enc_out``, held against the teacher-forced forward
+  over the prompt and the generated tokens; (b) ``internvl2-26b`` at full
+  width, all 48 layers (19.3 B parameters): 256 image embeds prepended to
+  2 x 1792 text tokens (a 2048-token causal prefill, GQA 48 / 8) ->
+  ``flash_attention`` once per layer, checked as in (a), then the image
+  and 1776 tokens prefilled into a cache and 16 greedy ticks against
+  teacher forcing; (c) ``whisper-large-v3-smoke`` and
+  ``internvl2-26b-smoke`` in fp32, card against CPU from the same
+  weights: prefill and decode logits and one train step with the
+  frontend's embeddings in the batch.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
 source, all started together) and prints ptxas's registers, shared memory
@@ -2532,14 +2551,18 @@ def expert_choices(model, batch: dict, microbatch: int) -> list:
     return seen
 
 
-def train_check(arch: str, device: str) -> dict:
+def train_check(arch: str, device: str,
+                label: str = "phase 22 (a)") -> dict:
     """One fp32 train step (remat 'full', microbatch 2) of ``arch`` on the
-    card and on the CPU from the same weights, held at ``TRAIN_TOL``."""
+    card and on the CPU from the same weights, held at ``TRAIN_TOL``; the
+    batch carries the stub frontend's embeddings when ``arch`` has one."""
     cfg = get_config(arch)
     flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
                          use_pallas=False, remat="full")
     opt = AdamWConfig(warmup_steps=0, peak_lr=1e-3)
     batch = train_batch(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S)
+    batch.update({k: v.numpy() for k, v in frontend_batch(
+        cfg, TRAIN_CHECK_B, TRAIN_CHECK_S, "cpu").items() if k != "tokens"})
     models = {dev: build_model(cfg, flags, device=dev)
               for dev in ("cpu", device)}
     # the CPU's weights on the card, bit for bit (the generators differ)
@@ -2570,11 +2593,11 @@ def train_check(arch: str, device: str) -> dict:
         f"choices differ between card and CPU (largest CPU top-k gap among "
         f"them {routing['flipped_max_gap']}, smallest in the batch "
         f"{routing['min_gap']:.3e})")
-    log(f"phase 22 (a) {arch}: loss {gm['loss']:.6f} vs {cm['loss']:.6f}, "
+    log(f"{label} {arch}: loss {gm['loss']:.6f} vs {cm['loss']:.6f}, "
         f"grad norm {gm['grad_norm']:.6f} vs {cm['grad_norm']:.6f}{route}")
     for k in ("loss", "grad_norm", "ce", "aux", "tokens", "lr"):
         np.testing.assert_allclose(gm[k], cm[k], **TRAIN_TOL,
-                                   err_msg=f"phase 22 (a) {arch} {k}")
+                                   err_msg=f"{label} {arch} {k}")
     errs = {}
     for part, g_tree, c_tree in (
             [("params", gst["params"], cst["params"])]
@@ -2584,10 +2607,10 @@ def train_check(arch: str, device: str) -> dict:
             g = g_tree[n].detach().cpu()
             torch.testing.assert_close(
                 g, c.detach(), **TRAIN_TOL,
-                msg=lambda m, n=n: f"phase 22 (a) {arch} {part} {n}: {m}")
+                msg=lambda m, n=n: f"{label} {arch} {part} {n}: {m}")
             worst = max(worst, max_err(g, c.detach()))
         errs[part] = worst
-    log(f"phase 22 (a) {arch} fp32 remat=full microbatch="
+    log(f"{label} {arch} fp32 remat=full microbatch="
         f"{TRAIN_CHECK_MICRO} B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: card == "
         f"CPU; max abs err params {errs['params']:.3e}, m {errs['m']:.3e}, "
         f"v {errs['v']:.3e} over {len(cst['params'])} tensors; step "
@@ -2771,10 +2794,388 @@ def phase_train_refusal(device: str = "cuda") -> dict:
     return {"refused": refused}
 
 
-def lm_kernel_records(lm: dict) -> list:
+# ------------------------------------ encoder, cross-attention, frontends
+# phase 23: whisper-large-v3 whole (arXiv:2212.04356: 32 encoder and 32
+# decoder layers, d_model 1280, 20 heads of 64, 1500 encoder frames, 448
+# decoder positions) and internvl2-26b at full width (arXiv:2404.16821:
+# the InternLM2 backbone, d_model 6144, 48 / 8 heads of 128, d_ff 16384,
+# 256 image tokens), both bf16 from seed 0; the frontends are stubs fed
+# precomputed embeddings, as in the reference
+FE_AUDIO, FE_AUDIO_B, FE_AUDIO_S = "whisper-large-v3", 4, 448
+FE_VISION, FE_VISION_B, FE_VISION_S = "internvl2-26b", 2, 1792
+FE_TICKS = 16
+FE_SMOKE = ("whisper-large-v3-smoke", "internvl2-26b-smoke")
+FE_SMOKE_B, FE_SMOKE_S = 2, 64
+# bf16 logits of two routes through the whole model (kernel against plain,
+# decode against teacher forcing): each route rounds the residual stream
+# to bf16 (8 significant bits) several times a layer, independently, and
+# a random-init stack amplifies the difference with depth.  The yardstick
+# is measured in the same run: the plain route against itself with its
+# attention probabilities rounded to bf16 before the PV product (the
+# reference's attn_probs_dtype='bfloat16'), which is the rounding the
+# tensor-core flash kernel adds.  Held at: RMS of the difference <= 2x
+# that yardstick's (relative to the logits' norm), and max abs difference
+# <= 5% of max |logits| (4-5 bf16 steps of the largest logit).  A CPU
+# rehearsal of whisper's 32 decoder layers gave 0.047 at |logits| <= 3.45
+# and an RMS of 1.06%; internvl2's 48 layers reached 2.9% on the card.  A
+# single wrong launch is caught by its own check against mha_ref, which
+# runs on every launch.
+FE_LOGITS_MAX, FE_LOGITS_RMS_FACTOR = 0.05, 2.0
+# each bf16 flash launch of phase 23 against mha_ref: the tensor-core
+# kernel rounds P to bf16 before the PV product (as SDPA's flash kernels
+# do), which moves an output by up to 2^-9 (bf16's unit roundoff) x
+# sum_j p_j |v_j|.  Where a row's terms cancel that exceeds LM_BF16's 2e-2
+# |o| + 2e-3: on an H100, a whisper row over two keys with |o| = 0.008
+# from terms of size ~1 came out 0.0023 off.  Held at LM_BF16 plus twice
+# that rounding bound, sum_j p_j |v_j| from the plain version run on
+# |v|.
+FE_P_ROUNDING = 2.0 ** -8
+
+
+def logits_drift(got, want) -> dict:
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return {"max_abs_err": max_err(got, want),
+            "max_abs_logit": float(want.abs().max()),
+            "rel_rms": float((got - want).norm() / want.norm())}
+
+
+def check_bf16_logits(got, want, what: str, floor: dict) -> dict:
+    """Two bf16 routes' logits: finite, max abs difference within 5% of
+    max |want|, RMS within 2x ``floor``'s (``FE_LOGITS_*``)."""
+    assert bool(torch.isfinite(got).all()), what
+    d = logits_drift(got, want)
+    rms_limit = FE_LOGITS_RMS_FACTOR * floor["rel_rms"]
+    assert d["max_abs_err"] <= FE_LOGITS_MAX * d["max_abs_logit"] and \
+        d["rel_rms"] <= rms_limit, (
+            f"{what}: max abs err {d['max_abs_err']:.4g} (limit "
+            f"{FE_LOGITS_MAX * d['max_abs_logit']:.4g}), rms "
+            f"{d['rel_rms']:.4g} (limit {rms_limit:.4g})")
+    return d
+
+
+def check_flash_bf16(calls, what: str) -> dict:
+    """Each captured bf16 flash launch against ``mha_ref`` on its own
+    operands, element by element within ``LM_BF16`` plus
+    ``FE_P_ROUNDING`` x the plain version on |v|; per launch the max abs
+    error, and the largest error over its limit."""
+    rt, at = LM_BF16["rtol"], LM_BF16["atol"]
+    err = over = mean_abs = 0.0
+    for (q, k, v), kw, out in calls["flash_attention"]:
+        want = mha_ref(q, k, v, **kw).float()
+        mag = mha_ref(q, k, v.abs(), **kw).float()
+        diff = (out.float() - want).abs()
+        ratio = diff / (rt * want.abs() + at + FE_P_ROUNDING * mag)
+        i = int(ratio.argmax())
+        r = float(ratio.flatten()[i])
+        assert r <= 1.0, (
+            f"{what} flash: |got - want| {float(diff.flatten()[i]):.4g} at "
+            f"{tuple(np.unravel_index(i, diff.shape))}, want "
+            f"{float(want.flatten()[i]):.4g}, sum p|v| "
+            f"{float(mag.flatten()[i]):.4g}: {r:.3f} of its limit")
+        err, over = max(err, float(diff.max())), max(over, r)
+        mean_abs = max(mean_abs, float(want.abs().mean()))
+        del want, mag, diff, ratio
+    log(f"{what}: flash == plain on the prefill's own operands, "
+        f"{len(calls['flash_attention'])} launches, max abs err {err:.3e} "
+        f"(mean |out| {mean_abs:.3e}), largest error {over:.3f} of its "
+        f"limit (rtol {rt}, atol {at}, + {FE_P_ROUNDING} sum p|v|)")
+    return {"max_abs_err": err, "max_err_over_limit": over,
+            "mean_abs_out": mean_abs}
+
+
+def frontend_batch(cfg, B: int, S: int, device, seed: int = SEED) -> dict:
+    """Seeded text tokens (B, S) and the stub frontend's precomputed
+    embeddings: ``audio_embeds`` (B, S_enc, d) or ``image_embeds`` (B, F,
+    d), N(0, 1) in fp32 (the model casts them to its compute dtype)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(device)}
+    if cfg.frontend == "audio":
+        out["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(device)
+    if cfg.frontend == "vision":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_frontend_tokens, cfg.d_model),
+            dtype=np.float32)).to(device)
+    return out
+
+
+def greedy_against_teacher_forcing(model, batch: dict, ctx: dict,
+                                   what: str, floor: dict) -> dict:
+    """Prefill the first S - FE_TICKS text tokens (and the image, when the
+    batch has one) into a cache in one ``decode_step`` call, hold its
+    logits against the kernel-route prefill's, decode FE_TICKS greedy
+    ticks, then run the teacher-forced forward (kernel route) over the
+    prompt and the generated tokens and hold each tick's logits against
+    its position's (``check_bf16_logits`` against ``floor``).  The middle
+    tick runs under the profiler and is left out of the tick times.
+    ``ctx`` (``enc_out``) goes with every call."""
+    tok = batch["tokens"]
+    B, S = tok.shape
+    P = S - FE_TICKS
+    F = batch["image_embeds"].shape[1] if "image_embeds" in batch else 0
+    dev = tok.device
+    cache = model.init_cache(B, F + S)
+    first = {"tokens": tok[:, :P], "pos": torch.arange(F + P, device=dev),
+             **ctx}
+    if F:
+        first["image_embeds"] = batch["image_embeds"]
+    t0 = time.perf_counter()
+    lg, cache = model.decode_step(cache, first)
+    torch.cuda.synchronize()
+    cache_prefill_s = time.perf_counter() - t0
+    nxt = lg[:, -1].argmax(-1)
+    ticks, gen, ms, prof = [], [], [], None
+    for t in range(FE_TICKS):
+        step = {"tokens": nxt[:, None], "pos": F + P + t, **ctx}
+        if t == FE_TICKS // 2:
+            held = {}
+            prof = profile_request(lambda: held.update(
+                r=model.decode_step(cache, step)), f"{what} decode tick")
+            out, cache = held["r"]
+        else:
+            t1 = time.perf_counter()
+            out, cache = model.decode_step(cache, step)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        gen.append(nxt)
+        ticks.append(out[:, 0])
+        nxt = out[:, 0].argmax(-1)
+    seq = torch.cat([tok[:, :P], torch.stack(gen, dim=1)], dim=1)
+    tf_batch = {"tokens": seq, **ctx}
+    if F:
+        tf_batch["image_embeds"] = batch["image_embeds"]
+    tf, _, _ = model(tf_batch)
+    prefix = check_bf16_logits(lg, tf[:, :P], f"{what} cached prefill",
+                               floor)
+    dec = check_bf16_logits(torch.stack(ticks, dim=1), tf[:, P:],
+                            f"{what} decode", floor)
+    prof.pop("device_ms_by_name")
+    return {"prompt": P, "ticks": FE_TICKS, "tick_ms": ms,
+            "tick_median_ms": float(np.median(ms)),
+            "cache_prefill_s": cache_prefill_s, "cached_prefill": prefix,
+            "decode_vs_teacher_forcing": dec, "tick_profile": prof}
+
+
+def frontend_prefill(model, batch: dict, what: str):
+    """The kernel-route prefill (``cache=None``), warm: flash once per
+    decoder layer, each launch held against ``mha_ref`` on its own
+    operands (``check_flash_bf16``) and timed beside SDPA; then the same
+    model's ``use_pallas=False`` logits.  Returns the record and the
+    logits."""
+    cfg = model.cfg
+    model(batch)                                  # warm: cuBLAS heuristics
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with capture_lm_kernels() as calls:
+        t0 = time.perf_counter()
+        logits, _, _ = model(batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    launched = counts()
+    assert launched == only(flash_attention=cfg.num_layers), launched
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_()
+    B, S = batch["tokens"].shape
+    S += cfg.num_frontend_tokens if "image_embeds" in batch else 0
+    for (q, k, _), kw, _ in calls["flash_attention"]:
+        assert tuple(q.shape) == (B, S, H, D) and \
+            tuple(k.shape) == (B, S, Hkv, D) and kw["causal"], (
+                q.shape, k.shape, kw)
+    assert not calls["ssd_scan"]
+    checked = check_flash_bf16(calls, what)
+    times = lm_kernel_times({"flash_attention": calls["flash_attention"]},
+                            plain=False, iters=5)["flash_attention"]
+    del calls
+    flags = model.flags
+    model.flags = dataclasses.replace(flags, use_pallas=False)
+    want, _, _ = model(batch)
+    model.flags = dataclasses.replace(flags, use_pallas=False,
+                                      attn_probs_dtype="bfloat16")
+    alt, _, _ = model(batch)
+    model.flags = flags
+    floor = logits_drift(alt, want)
+    del alt
+    routes = check_bf16_logits(logits, want, f"{what} kernel vs plain route",
+                               floor)
+    del want
+    n = times["calls"]
+    log(f"{what} prefill B={B} S={S} (kernel route, warm): "
+        f"{prefill_s * 1e3:.1f} ms; launches {launched}; flash per launch "
+        f"(q {(B, S, H, D)}, {Hkv} KV heads) {times['kernel_ms'] / n:.4f} "
+        f"ms, SDPA {times['library_ms'] / n:.4f} ms, bound "
+        f"{times['bound_ms'] / n:.4f} ms ({times['bound_by']}), share "
+        f"{times['bound_ms'] / times['kernel_ms']:.3f}, "
+        f"{times['tflops']:.1f} TFLOP/s; logits kernel vs plain route: "
+        f"max abs err {routes['max_abs_err']:.4g} at max |logit| "
+        f"{routes['max_abs_logit']:.4g}, rms {routes['rel_rms']:.4g}; plain "
+        f"route with bf16 probabilities vs plain: max abs err "
+        f"{floor['max_abs_err']:.4g}, rms {floor['rel_rms']:.4g}")
+    return {"launches": launched, "prefill_ms": prefill_s * 1e3,
+            "flash": {"launches": launched["flash_attention"],
+                      "shape_q": [B, S, H, D], "kv_heads": Hkv,
+                      "max_abs_err": checked["max_abs_err"],
+                      "max_err_over_limit": checked["max_err_over_limit"],
+                      "mean_abs_out": checked["mean_abs_out"],
+                      "ms": times["kernel_ms"],
+                      "ms_per_launch": times["kernel_ms"] / n,
+                      "library_ms": times["library_ms"],
+                      "library_ms_per_launch": times["library_ms"] / n,
+                      "bound_ms": times["bound_ms"],
+                      "bound_ms_per_launch": times["bound_ms"] / n,
+                      "bound_by": times["bound_by"],
+                      "tflops": times["tflops"],
+                      "plain_ms": None},
+            "routes": routes, "bf16_probs_drift": floor}, logits
+
+
+def frontend_model(cfg, device):
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16",
+                         use_pallas=True)
+    t0 = time.perf_counter()
+    model = build_model(cfg, flags, device=device, seed=SEED)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def phase_fe_audio(device: str = "cuda") -> dict:
+    """Phase 23 (a): whisper-large-v3 whole, bf16: the prefill of 448
+    decoder tokens over 1500 audio frames (``frontend_prefill``), the
+    encoder alone, and 16 greedy ticks on a precomputed ``enc_out``
+    against teacher forcing."""
+    cfg = get_config(FE_AUDIO)
+    model, init_s = frontend_model(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = frontend_batch(cfg, FE_AUDIO_B, FE_AUDIO_S, device)
+    what = f"phase 23 (a) {FE_AUDIO}"
+    out, _ = frontend_prefill(model, batch, what)
+    floor = out["bf16_probs_drift"]
+    t0 = time.perf_counter()
+    enc_out = model._encode(batch["audio_embeds"])
+    torch.cuda.synchronize()
+    encoder_s = time.perf_counter() - t0
+    assert enc_out.shape == (FE_AUDIO_B, cfg.encoder_seq, cfg.d_model)
+    assert bool(torch.isfinite(enc_out).all())
+    _build.reset_launch_counts()
+    dec = greedy_against_teacher_forcing(model, batch, {"enc_out": enc_out},
+                                         what, floor)
+    out.update(arch=FE_AUDIO, params=n_params, init_s=init_s,
+               encoder_ms=encoder_s * 1e3, decode=dec)
+    log(f"{what} whole ({n_params / 1e9:.3f} B params, {cfg.encoder_layers}"
+        f" + {cfg.num_layers} layers): encoder {encoder_s * 1e3:.1f} ms for "
+        f"{FE_AUDIO_B} x {cfg.encoder_seq} frames; prefill "
+        f"{out['prefill_ms']:.1f} ms (encoder included); cached prefill of "
+        f"{dec['prompt']} tokens {dec['cache_prefill_s'] * 1e3:.1f} ms; "
+        f"tick median {dec['tick_median_ms']:.2f} ms over {FE_TICKS} greedy "
+        f"ticks; decode vs teacher forcing max abs err "
+        f"{dec['decode_vs_teacher_forcing']['max_abs_err']:.4g}, rms "
+        f"{dec['decode_vs_teacher_forcing']['rel_rms']:.4g}")
+    del model, enc_out, batch
+    free_cuda()
+    return out
+
+
+def phase_fe_vision(device: str = "cuda") -> dict:
+    """Phase 23 (b): internvl2-26b whole (all 48 layers, 19.3 B
+    parameters), bf16: 256 image embeds prepended to 1792 text tokens (a
+    2048-token causal prefill), then the image and 1776 tokens prefilled
+    into a cache and 16 greedy ticks against teacher forcing."""
+    cfg = get_config(FE_VISION)
+    model, init_s = frontend_model(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = frontend_batch(cfg, FE_VISION_B, FE_VISION_S, device)
+    what = f"phase 23 (b) {FE_VISION}"
+    out, logits = frontend_prefill(model, batch, what)
+    floor = out["bf16_probs_drift"]
+    assert logits.shape == (FE_VISION_B, FE_VISION_S, cfg.padded_vocab())
+    del logits
+    _build.reset_launch_counts()
+    dec = greedy_against_teacher_forcing(model, batch, {}, what, floor)
+    peak = torch.cuda.max_memory_allocated()
+    out.update(arch=FE_VISION, layers=cfg.num_layers, params=n_params,
+               init_s=init_s, decode=dec, peak_alloc_bytes=peak)
+    log(f"{what} whole ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, made on the card in {init_s:.2f} "
+        f"s): prefill {out['prefill_ms']:.1f} ms; cached prefill "
+        f"{dec['cache_prefill_s'] * 1e3:.1f} ms; tick median "
+        f"{dec['tick_median_ms']:.2f} ms over {FE_TICKS} greedy ticks; "
+        f"decode vs teacher forcing max abs err "
+        f"{dec['decode_vs_teacher_forcing']['max_abs_err']:.4g}, rms "
+        f"{dec['decode_vs_teacher_forcing']['rel_rms']:.4g}; peak "
+        f"allocation {peak / 1e9:.2f} GB")
+    del model, batch
+    free_cuda()
+    return out
+
+
+def serve_check(arch: str, device: str) -> dict:
+    """Phase 23 (c) serving: fp32 ``use_pallas=False`` (the reduced
+    configs' 16-wide heads take no kernel) on the CPU and on ``device``
+    from the same weights: prefill logits, then 8 decode steps (whisper
+    on each device's own ``enc_out``, internvl2 after an image + prompt
+    prefill into the cache), each at ``LM_FP32``."""
+    cfg = get_config(arch)
+    flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                         use_pallas=False)
+    models = {dev: build_model(cfg, flags, device=dev)
+              for dev in ("cpu", device)}
+    models[device].load_state_dict(models["cpu"].state_dict())
+    batch = frontend_batch(cfg, FE_SMOKE_B, FE_SMOKE_S, "cpu")
+    F = cfg.num_frontend_tokens if "image_embeds" in batch else 0
+    P, steps = FE_SMOKE_S - 8, 8
+    out = {}
+    for dev, model in models.items():
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits, _, _ = model(b)
+        ctx = ({"enc_out": model._encode(b["audio_embeds"])}
+               if "audio_embeds" in b else {})
+        cache = model.init_cache(FE_SMOKE_B, F + FE_SMOKE_S)
+        first = {"tokens": b["tokens"][:, :P],
+                 "pos": torch.arange(F + P, device=dev), **ctx}
+        if F:
+            first["image_embeds"] = b["image_embeds"]
+        lg, cache = model.decode_step(cache, first)
+        dec = [lg]
+        for t in range(P, P + steps):
+            lg, cache = model.decode_step(cache, {
+                "tokens": b["tokens"][:, t:t + 1], "pos": F + t, **ctx})
+            dec.append(lg)
+        out[dev] = (logits.cpu(), torch.cat(dec, dim=1).cpu(),
+                    ctx.get("enc_out"))
+    (c_log, c_dec, c_enc), (g_log, g_dec, g_enc) = out["cpu"], out[device]
+    errs = {}
+    for name, got, want in (("prefill", g_log, c_log),
+                            ("decode", g_dec, c_dec),
+                            ("teacher_forcing", c_dec, c_log)):
+        torch.testing.assert_close(
+            got, want, **LM_FP32,
+            msg=lambda m, n=name: f"phase 23 (c) {arch} {n}: {m}")
+        errs[name] = max_err(got, want)
+    if c_enc is not None:
+        torch.testing.assert_close(g_enc.cpu(), c_enc, **LM_FP32)
+        errs["enc_out"] = max_err(g_enc.cpu(), c_enc)
+    log(f"phase 23 (c) {arch} fp32 serving, card == CPU at rtol "
+        f"{LM_FP32['rtol']} / atol {LM_FP32['atol']}: max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def phase_fe_card_vs_cpu(device: str = "cuda") -> dict:
+    """Phase 23 (c): the reduced configs on the card against the CPU:
+    serving (``serve_check``) and one train step (``train_check``, the
+    frontend's embeds in the batch) each."""
+    out = {arch: {"serving": serve_check(arch, device),
+                  "train": train_check(arch, device, "phase 23 (c)")}
+           for arch in FE_SMOKE}
+    free_cuda()
+    return out
+
+
+def lm_kernel_records(lm: dict, fe: dict) -> list:
     """The ``kernels`` records of the LM path: times, bound and errors of
     the timed bf16 prefill (phase 13), with the fp32 (phase 12) and 32k
-    (phase 14) errors and the 32k times beside them."""
+    (phase 14) errors and the 32k times beside them; flash also carries
+    phase 23's two prefills under ``paths``."""
     recs = []
     for name, src, line in (
             ("flash_attention", "flash_attention.cu",
@@ -2810,6 +3211,8 @@ def lm_kernel_records(lm: dict) -> list:
             "bound_share": t["bound_ms"] / t["kernel_ms"],
             "long_bound_share": tl["bound_ms"] / tl["kernel_ms"],
         })
+    recs[0]["paths"] = {f"{fe[k]['arch']}_prefill": fe[k]["flash"]
+                        for k in ("audio", "vision")}
     return recs
 
 
@@ -2872,6 +3275,13 @@ def main() -> int:
     train = {"card_vs_cpu": phase_train_card_vs_cpu(),
              "full": phase_train_full(work_dir=TRAIN_WORK_DIR),
              "refusal": phase_train_refusal()}
+    free_cuda()
+    t0 = time.perf_counter()
+    fe = {"audio": phase_fe_audio(), "vision": phase_fe_vision(),
+          "card_vs_cpu": phase_fe_card_vs_cpu()}
+    fe["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 (encoder, cross-attention, frontends) took "
+        f"{fe['seconds']:.1f} s")
 
     tot = timing["totals"]
     bound_ms, bound_by = bound(work, PEAK_FP32_CUDA_CORES)
@@ -3010,7 +3420,7 @@ def main() -> int:
                 ranks, "stream", "pairwise_gram")},
         "ptxas": build_s["ptxas"]["pairwise_gram"],
     })
-    kernels += lm_kernel_records(lm)
+    kernels += lm_kernel_records(lm, fe)
     for rec in kernels:
         if rec["name"] in ("flash_attention", "ssd_scan"):
             rec["ptxas"] = build_s["ptxas"][rec["name"]]
@@ -3033,6 +3443,7 @@ def main() -> int:
             "some_pairs": some, "stream_a2a": stream,
             "stream_x2y": stream_x2y, "sharded_one_rank": one_rank,
             "ranks": ranks, "mesh": mesh, "lm": lm, "train": train,
+            "frontends": fe,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

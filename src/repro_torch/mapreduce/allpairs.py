@@ -139,9 +139,11 @@ def _mesh_pad(mesh) -> int:
 
 
 def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
-    """``build_plan`` memoized on the schema object, so repeated weight
-    profiles (``PLAN_CACHE`` hits return the same schema) skip the host
-    plan build."""
+    """``build_plan`` memoized on the schema object: a caller that passes
+    the same ``MappingSchema`` again (``pairwise_similarity(schema=...)``)
+    skips the host plan build.  A ``PLAN_CACHE`` hit does not: ``plan_a2a``
+    wraps every hit in a new schema (``core.planner._remap_schema``), so
+    each planned request builds its plan anew."""
     key = (pad_reducers_to, pad_slots_to)
     cache = schema.__dict__.setdefault("_reducer_plan_cache", {})
     plan = cache.get(key)
@@ -154,8 +156,8 @@ def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
 
 def _x2y_plan_for(schema, num_x: int, *, pad_reducers_to: int,
                   pad_slots_to: int):
-    """``build_x2y_plan`` memoized on the schema object (same contract as
-    ``_plan_for``)."""
+    """``build_x2y_plan`` memoized on the schema object (the same contract
+    as ``_plan_for``: reused for the same schema object only)."""
     key = ("x2y", num_x, pad_reducers_to, pad_slots_to)
     cache = schema.__dict__.setdefault("_reducer_plan_cache", {})
     plan = cache.get(key)

@@ -8,6 +8,8 @@ stacked weights; the port keeps one :class:`Layer` per layer, in order
 ``block``), and runs them in a Python loop (:func:`stack_apply`).  With
 autograd on, each repetition is rematerialised as the reference's scan
 body is (``RuntimeFlags.remat``); the tail and the serving path are not.
+An encoder-decoder's decoder layers (``cross=True``) also attend to the
+encoder's output between the mixer and the FFN.
 """
 
 from __future__ import annotations
@@ -71,6 +73,13 @@ def _attn_spec(spec: LayerSpec, cfg) -> AttnSpec:
         rope_theta=cfg.rope_theta)
 
 
+def _cross_spec(cfg) -> AttnSpec:
+    """Cross-attention: no window, not causal, no RoPE."""
+    return AttnSpec(
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim_(), window=0, causal=False, use_rope=False)
+
+
 def _norm_scale(d: int, device) -> nn.Parameter:
     """An RMSNorm gamma (fp32, zero: the norm scales by ``1 + gamma``)."""
     return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
@@ -79,15 +88,12 @@ def _norm_scale(d: int, device) -> nn.Parameter:
 
 class Layer(nn.Module):
     """One layer's parameters under the reference's names: ``ln1``,
-    ``mixer``, and ``ln2`` / ``ffn`` unless the FFN is ``'none'``."""
+    ``mixer``, ``cross`` / ``ln_cross`` when it attends to an encoder, and
+    ``ln2`` / ``ffn`` unless the FFN is ``'none'``."""
 
     def __init__(self, spec: LayerSpec, cfg, flags, device,
                  gen: torch.Generator):
         super().__init__()
-        if spec.cross:
-            raise NotImplementedError(
-                "cross-attention (encoder-decoder) is not ported yet; see "
-                "ROADMAP.md")
         self.spec = spec
         dtype, d = flags.pdtype, cfg.d_model
         self.ln1 = _norm_scale(d, device)
@@ -96,6 +102,10 @@ class Layer(nn.Module):
         else:
             shapes = mamba_shapes(d, cfg.ssm_state, dtype)
         self.mixer = make_params(shapes, device, gen)
+        if spec.cross:
+            self.cross = make_params(attn_shapes(d, _cross_spec(cfg), dtype),
+                                     device, gen)
+            self.ln_cross = _norm_scale(d, device)
         if spec.ffn != "none":
             self.ln2 = _norm_scale(d, device)
             if spec.ffn == "moe":
@@ -106,9 +116,11 @@ class Layer(nn.Module):
             self.ffn = make_params(shapes, device, gen)
 
 
-def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None):
-    """One layer: ``x + mixer(norm(x))``, then ``x + ffn(norm(x))``.
-    Returns (x, new_cache, aux)."""
+def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None,
+                 enc_out=None):
+    """One layer: ``x + mixer(norm(x))``, then ``x + cross(norm(x),
+    enc_out)`` in a decoder layer of an encoder-decoder, then ``x +
+    ffn(norm(x))``.  Returns (x, new_cache, aux)."""
     spec = layer.spec
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -124,6 +136,14 @@ def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None):
             use_kernels=flags.use_pallas, ssd_impl=flags.ssd_impl)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.cross:
+        if enc_out is None:
+            raise ValueError("a cross-attention layer needs enc_out")
+        # the reference's call: plain attention, fp32 probabilities
+        h = rms_norm(x, layer.ln_cross, cfg.norm_eps)
+        y, _ = attn_apply(layer.cross, h, _cross_spec(cfg),
+                          use_kernels=False, kv_src=enc_out)
+        x = x + y
     if spec.ffn != "none":
         h = rms_norm(x, layer.ln2, cfg.norm_eps)
         if spec.ffn == "moe":
@@ -169,20 +189,24 @@ def _remat(fn, flags):
 
 
 def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
-                positions=None):
-    """Every layer in order.  Returns (x, new_cache, aux_sum).
+                positions=None, enc_out=None):
+    """Every layer in order; ``enc_out`` reaches every cross-attention.
+    Returns (x, new_cache, aux_sum).
 
     Without a cache and with autograd on, each repetition of the pattern
     (the reference's scan body) runs under :func:`_remat`; the tail layers
-    are not rematerialised, as in the reference."""
+    are not rematerialised, as in the reference.  ``enc_out`` enters each
+    rematerialised repetition as an argument, so the decoder's gradient
+    reaches the encoder under every ``remat``."""
     P = len(stack.pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None if cache is None else []
 
-    def superblock(x, block):
+    def superblock(x, block, enc_out):
         aux_sb = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in layers[block * P:(block + 1) * P]:
-            x, _, a = _block_apply(layer, x, cfg, flags, positions=positions)
+            x, _, a = _block_apply(layer, x, cfg, flags, positions=positions,
+                                   enc_out=enc_out)
             aux_sb = aux_sb + a
         return x, aux_sb
 
@@ -191,13 +215,14 @@ def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
         run = _remat(superblock, flags) if torch.is_grad_enabled() \
             else superblock
         for block in range(stack.n_blocks):
-            x, a = run(x, block)
+            x, a = run(x, block, enc_out)
             aux = aux + a
         n_scanned = stack.n_blocks * P
     for i in range(n_scanned, len(layers)):
         x, nc, a = _block_apply(
             layers[i], x, cfg, flags,
-            cache=None if cache is None else cache[i], positions=positions)
+            cache=None if cache is None else cache[i], positions=positions,
+            enc_out=enc_out)
         if cache is not None:
             new_cache.append(nc)
         aux = aux + a

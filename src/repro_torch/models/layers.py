@@ -221,20 +221,27 @@ def attn_apply(params, x: torch.Tensor, spec: AttnSpec, *,
                cache: Optional[dict] = None,
                positions: Optional[torch.Tensor] = None,
                use_kernels: bool = True,
+               kv_src: Optional[torch.Tensor] = None,
                probs_dtype=torch.float32):
-    """Self-attention.  cache: ``{'k','v': (B, Smax, Hkv, D), 'len': int}``
-    (plus ``'k_scale'``/``'v_scale'`` when int8) — decode writes at 'len',
-    in place.  Without a cache a causal layer goes through the flash
-    kernel when ``use_kernels``.  Returns (y, new_cache)."""
+    """Self-attention, or cross-attention when ``kv_src`` (the encoder's
+    output, (B, S_enc, d)) gives the keys and values; only the queries,
+    and the keys of self-attention, are RoPE'd.  cache: ``{'k','v': (B,
+    Smax, Hkv, D), 'len': int}`` (plus ``'k_scale'``/``'v_scale'`` when
+    int8) — decode writes at 'len', in place.  Without a cache a causal
+    layer goes through the flash kernel when ``use_kernels``; a non-causal
+    one (the encoder, cross-attention) never does, as in the reference.
+    Returns (y, new_cache)."""
     S = x.shape[1]
+    src = x if kv_src is None else kv_src
     q = _ein("bsd,dhk->bshk", x, params["wq"])
-    k = _ein("bsd,dhk->bshk", x, params["wk"])
-    v = _ein("bsd,dhk->bshk", x, params["wv"])
+    k = _ein("bsd,dhk->bshk", src, params["wk"])
+    v = _ein("bsd,dhk->bshk", src, params["wv"])
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if spec.use_rope:
         q = rope(q, positions, spec.rope_theta)
-        k = rope(k, positions, spec.rope_theta)
+        if kv_src is None:
+            k = rope(k, positions, spec.rope_theta)
 
     new_cache = None
     if cache is not None:

@@ -1,4 +1,5 @@
-"""Decoder-only language models (port of ``repro.models.lm``).
+"""Language models: decoder-only, encoder-decoder, frontend stubs (port of
+``repro.models.lm``).
 
 ``build_model(cfg, flags, device=...)`` returns an :class:`LMModel`, an
 ``nn.Module`` holding its weights (random, from a seeded generator on the
@@ -10,15 +11,21 @@ device, at the reference's init scales) and exposing:
   decode_step(cache, batch)                  -> (logits, new_cache) [serve]
 
 batch: ``{'tokens' (B, S)}``, plus ``'targets'`` and ``'mask'`` (B, S) for
-``loss`` and ``'pos'`` (an int) for ``decode_step``.  Serving builds no
-autograd graph (``decode_step`` runs under ``torch.no_grad``, and serving
-weights do not require grad); ``loss`` is differentiable on the non-kernel
-route.  :func:`load_reference_params` fills a model from the JAX
-package's parameter tree (numpy leaves) and :func:`export_reference_params`
-builds that tree from the model, so weights, optimizer moments and
-checkpoints cross between the packages both ways.  The encoder,
-cross-attention and the audio / vision frontends are not ported yet
-(ROADMAP.md); configs that need them raise.
+``loss`` and ``'pos'`` for ``decode_step``.  The frontends are stubs that
+take precomputed embeddings, as in the reference: an audio config
+(encoder-decoder, ``encoder_layers > 0``) adds ``'audio_embeds'`` (B,
+S_enc, d), which the encoder (non-causal attention + FFN, plain attention
+on both routes) turns into the output its decoder's cross-attention reads,
+or ``'enc_out'``, an output :meth:`LMModel._encode` made before, so decode
+does not rerun the encoder; a vision config adds ``'image_embeds'`` (B, F,
+d), prepended to the token embeddings and cut from the logits.  Serving
+builds no autograd graph (``decode_step`` runs under ``torch.no_grad``,
+and serving weights do not require grad); ``loss`` is differentiable on
+the non-kernel route.  :func:`load_reference_params` fills a model from
+the JAX package's parameter tree (numpy leaves) and
+:func:`export_reference_params` builds that tree from the model, so
+weights, optimizer moments and checkpoints cross between the packages
+both ways.
 """
 
 from __future__ import annotations
@@ -59,17 +66,14 @@ def _specs_to_stack(kinds: list[dict], period: int) -> StackDef:
 
 
 class LMModel(nn.Module):
-    """A decoder-only LM on one device (``None`` means CUDA).  Its weights
-    do not require grad until ``train.init_state`` (or
-    ``state_from_reference``) turns them on."""
+    """An LM on one device (``None`` means CUDA): the decoder ``layers``
+    and ``ln_f``, and for an encoder-decoder also ``enc_layers`` and
+    ``enc_ln_f``.  Its weights do not require grad until
+    ``train.init_state`` (or ``state_from_reference``) turns them on."""
 
     def __init__(self, cfg: ArchConfig, flags: Optional[RuntimeFlags] = None,
                  *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.encoder_layers or cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder, cross-attention and the "
-                f"{cfg.frontend} frontend are not ported yet; see ROADMAP.md")
         dev = resolve_device(device)
         self.cfg = cfg
         self.flags = flags or RuntimeFlags()
@@ -87,24 +91,58 @@ class LMModel(nn.Module):
         self.ln_f = nn.Parameter(
             torch.zeros(cfg.d_model, dtype=torch.float32, device=dev),
             requires_grad=False)
+        self.enc_stack = None
+        if cfg.encoder_layers:
+            enc_spec = LayerSpec(mixer="attn", window=0, ffn="dense",
+                                 cross=False, causal=False)
+            self.enc_stack = StackDef(pattern=(enc_spec,),
+                                      n_blocks=cfg.encoder_layers, tail=())
+            self.enc_layers = nn.ModuleList(
+                Layer(spec, cfg, self.flags, dev, gen)
+                for spec in self.enc_stack.specs())
+            self.enc_ln_f = nn.Parameter(
+                torch.zeros(cfg.d_model, dtype=torch.float32, device=dev),
+                requires_grad=False)
 
     @property
     def device(self) -> torch.device:
         return self.ln_f.device
 
+    def _encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's output for precomputed audio frame embeddings (B,
+        S_enc, d): the encoder stack at positions ``0 .. S_enc - 1``, then
+        ``enc_ln_f``."""
+        x = audio_embeds.to(self.flags.cdtype)
+        x, _, _ = stack_apply(
+            self.enc_layers, self.enc_stack, x, self.cfg, self.flags,
+            positions=torch.arange(x.shape[1], device=x.device))
+        return rms_norm(x, self.enc_ln_f, self.cfg.norm_eps)
+
     def forward(self, batch: dict, *, cache: Optional[list] = None,
                 positions: Optional[torch.Tensor] = None):
         """Returns (logits, new_cache, aux).  Without a cache this is the
-        prefill (or the training forward): attention through the flash
-        kernel and Mamba through the SSD kernel on the kernel route."""
+        prefill (or the training forward): causal attention through the
+        flash kernel and Mamba through the SSD kernel on the kernel route.
+        Image embeds, when the batch has them, take the first positions;
+        the logits are the text's only."""
         cfg, flags = self.cfg, self.flags
         x = embed_apply(self.embed, batch["tokens"]).to(flags.cdtype)
+        img = batch.get("image_embeds") if cfg.frontend == "vision" \
+            else None
+        if img is not None:
+            x = torch.cat([img.to(flags.cdtype), x], dim=1)
+        enc_out = None
+        if self.enc_stack is not None:
+            enc_out = batch["enc_out"] if "enc_out" in batch \
+                else self._encode(batch["audio_embeds"])
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         x, new_cache, aux = stack_apply(
             self.layers, self.stack, x, cfg, flags, cache=cache,
-            positions=positions)
+            positions=positions, enc_out=enc_out)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        if img is not None:
+            x = x[:, img.shape[1]:]
         return unembed_apply(self.embed, x), new_cache, aux
 
     def loss(self, batch: dict):
@@ -133,9 +171,17 @@ class LMModel(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache: list, batch: dict):
-        """One-token step.  batch: ``{'tokens' (B, 1), 'pos' int}``; the
-        cache is updated in place and returned."""
-        positions = torch.tensor([int(batch["pos"])], device=self.device)
+        """One-token step.  batch: ``{'tokens' (B, 1), 'pos' int}`` plus
+        ``'enc_out'`` (or ``'audio_embeds'``) for an encoder-decoder; the
+        cache is updated in place and returned.  As in the reference, a
+        ``'pos'`` of several positions with as many tokens (and any
+        ``'image_embeds'``, which take the first of them) prefills the
+        cache in one call."""
+        pos = batch["pos"]
+        if isinstance(pos, (torch.Tensor, np.ndarray)) and np.ndim(pos):
+            positions = torch.as_tensor(pos, device=self.device).long()
+        else:
+            positions = torch.tensor([int(pos)], device=self.device)
         logits, new_cache, _ = self.forward(batch, cache=cache,
                                             positions=positions)
         return logits, new_cache
@@ -165,20 +211,25 @@ def reference_paths(model: LMModel) -> dict:
     The reference stacks the scanned layers' leaves along a leading
     ``n_blocks`` axis (``stack/pos{i}/...``, layer ``block * len(pattern)
     + i``) and keeps the tail layers' leaves as they are
-    (``stack/tail{j}/...``)."""
-    stack, P = model.stack, len(model.stack.pattern)
+    (``stack/tail{j}/...``); the encoder's layers (``enc_layers.{n}``) are
+    ``enc_stack/pos0/...``, block ``n``."""
+    stacks = {"layers": ("stack", model.stack),
+              "enc_layers": ("enc_stack", model.enc_stack)}
     out = {}
     for name, _ in model.named_parameters():
-        if not name.startswith("layers."):
+        head, _, tail = name.partition(".")
+        if head not in stacks:
             out[name] = (name.replace(".", "/"), None)
             continue
-        _, idx, rest = name.split(".", 2)
+        tree, stack = stacks[head]
+        P = len(stack.pattern)
+        idx, rest = tail.split(".", 1)
         idx = int(idx)
         if idx < stack.n_blocks * P:
             pos, blk = f"pos{idx % P}", idx // P
         else:
             pos, blk = f"tail{idx - stack.n_blocks * P}", None
-        out[name] = (f"stack/{pos}/{rest.replace('.', '/')}", blk)
+        out[name] = (f"{tree}/{pos}/{rest.replace('.', '/')}", blk)
     return out
 
 
@@ -186,9 +237,10 @@ def reference_ranks(model: LMModel) -> dict:
     """``{port parameter name: rank of its leaf in the reference's
     tree}``: one more than the port's for a scanned layer (its leading
     ``n_blocks`` axis).  The reference's AdamW decays a leaf of rank >= 2,
-    so the port decides decay from these ranks: scanned norms' gammas and
-    Mamba's ``dt_bias`` / ``a_log`` / ``d_skip`` / ``norm`` are decayed,
-    the same vectors in the tail and ``ln_f`` are not."""
+    so the port decides decay from these ranks: scanned norms' gammas
+    (``ln_cross`` too) and Mamba's ``dt_bias`` / ``a_log`` / ``d_skip`` /
+    ``norm`` are decayed, the same vectors in the tail and ``ln_f`` /
+    ``enc_ln_f`` are not."""
     paths = reference_paths(model)
     return {n: p.dim() + (paths[n][1] is not None)
             for n, p in model.named_parameters()}

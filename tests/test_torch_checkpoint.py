@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs.base import ArchConfig as JaxArchConfig
+from repro.configs.base import get_config as jax_config
 from repro.compat import make_mesh
 from repro.data import PackedLMDataset as RefDataset
 from repro.data import packing_efficiency as ref_packing_efficiency
@@ -24,7 +25,7 @@ from repro.train import CheckpointManager as RefCheckpointManager
 from repro.train import elastic as ref_elastic
 from repro.train.optimizer import AdamWConfig as RefAdamWConfig
 from repro.train.optimizer import adamw_init as ref_adamw_init
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.data import PackedLMDataset, packing_efficiency
 from repro_torch.launch.train_lm import Trainer
 from repro_torch.models import RuntimeFlags, build_model, \
@@ -265,6 +266,63 @@ def test_export_restacks_scanned_layers():
     for i in range(3):
         assert torch.equal(wq[i], model.layers[i].mixer["wq"])
     assert set(tree) == {"embed", "stack", "ln_f"}
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3-smoke",
+                                  "internvl2-26b-smoke"])
+def test_encoder_and_frontend_checkpoints_cross_both_ways(tmp_path, arch):
+    """A bf16 state after one train step with the frontend's embeds in the
+    batch (non-zero moments on every leaf the step reaches, the encoder's
+    and cross-attention's too): the port's checkpoint restores in the
+    reference with its own tree's structure and dtypes, and the
+    reference's save of it restores in a fresh port model, both bit for
+    bit."""
+    cfg = get_config(arch)
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16",
+                         use_pallas=False)
+    model = build_model(cfg, flags, device="cpu", seed=3)
+    opt = AdamWConfig(warmup_steps=0, peak_lr=1e-3)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 256, (2, 8)).astype(np.int32),
+             "targets": rng.integers(0, 256, (2, 8)).astype(np.int32)}
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    else:
+        batch["image_embeds"] = rng.normal(
+            size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
+                np.float32)
+    state, _ = make_train_step(model, opt)(init_state(model, opt), batch)
+    tree = state_to_reference(model, state)
+    if cfg.encoder_layers:
+        assert {"enc_stack", "enc_ln_f"} <= set(tree["params"])
+        assert {"cross", "ln_cross"} <= set(tree["params"]["stack"]["pos0"])
+        assert float(tree["opt"]["m"]["enc_stack"]["pos0"]["mixer"]["wq"]
+                     .float().abs().max()) > 0
+    CheckpointManager(str(tmp_path / "port")).save(1, tree)
+    jm = jax_build(jax_config(arch), JaxFlags(
+        param_dtype="bfloat16", compute_dtype="bfloat16"),
+        ShardingRules.create(make_mesh((1,), ("data",))))
+    params = jm.init(jax.random.key(0))
+    template = {"params": params, "opt": ref_adamw_init(
+        params, RefAdamWConfig()), "step": jnp.zeros((), jnp.int32)}
+    restored, _ = RefCheckpointManager(str(tmp_path / "port")).restore(
+        template=template)
+    assert jax.tree.structure(restored) == jax.tree.structure(
+        jax.tree.map(np.asarray, template))
+    for k, a in _flat(restored).items():
+        assert str(np.asarray(a).dtype) == str(np.asarray(
+            _flat(template)[k]).dtype), k
+    assert_bit_equal(restored, tree)
+    RefCheckpointManager(str(tmp_path / "ref")).save(2, restored)
+    back, manifest = CheckpointManager(str(tmp_path / "ref")).restore(
+        device="cpu")
+    assert manifest["step"] == 2
+    fresh = build_model(cfg, flags, device="cpu", seed=9)
+    got = state_from_reference(fresh, back)
+    assert_bit_equal(state_to_reference(fresh, got), tree)
+    assert_bit_equal({n: p for n, p in fresh.named_parameters()},
+                     {n: p for n, p in model.named_parameters()})
 
 
 # ---------------------------------------------------------------- elastic

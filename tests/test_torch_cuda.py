@@ -801,7 +801,9 @@ FLASH_CASES = [
     (1, 400, 400, 2, 1, 128, True, 200),   # window ends inside a kv tile
     (1, 300, 300, 2, 2, 64, False, 150),   # two-sided, inside a kv tile
     (1, 256, 256, 16, 2, 128, True, 0),    # Hq / Hkv = 8, as in Jamba
-]
+    (1, 448, 448, 20, 20, 64, True, 0),    # whisper's decoder: MHA, 20 heads
+    (1, 300, 300, 12, 2, 128, True, 0),    # G = 6 as in internvl2; one row
+]                                          # past two q tiles
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window", FLASH_CASES)
@@ -1082,6 +1084,47 @@ def test_batched_server_on_the_card(cuda):
     assert all(0 <= t < cfg.padded_vocab() for r in reqs for t in r.out)
 
 
+def _frontend_lm(arch, dev, use_pallas):
+    """A reduced encoder-decoder / vision config with 64-wide heads (the
+    kernel's smallest width; the reduced configs' 16 runs only on the
+    plain route), fp32, the same weights on every device (seed 0 on the
+    CPU, copied), and a batch with the stub frontend's embeddings."""
+    cfg = dataclasses.replace(get_config(arch), head_dim=64)
+    flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                         use_pallas=use_pallas)
+    model = build_model(cfg, flags, device="cpu", seed=0)
+    if dev != "cpu":
+        model = model.to(dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 150)))}
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    else:
+        batch["image_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
+                np.float32))
+    return cfg, model, {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3-smoke",
+                                  "internvl2-26b-smoke"])
+def test_frontend_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """The kernel-route prefill on the card (flash once per decoder layer;
+    the encoder and cross-attention on plain attention) against the CPU
+    (plain versions) on the same weights, at the model-level 2e-3."""
+    cfg, model, batch = _frontend_lm(arch, cuda, True)
+    _, cpu_model, cpu_batch = _frontend_lm(arch, "cpu", True)
+    _build.reset_launch_counts()
+    got, _, _ = model(batch)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"flash_attention": cfg.num_layers}
+    want, _, _ = cpu_model(cpu_batch)
+    assert got.shape == want.shape == (2, 150, cfg.padded_vocab())
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
 # ------------------------------------------------------------------ training
 
 def test_kernel_wrappers_refuse_autograd_on_the_card(cuda):
@@ -1099,6 +1142,20 @@ def test_kernel_wrappers_refuse_autograd_on_the_card(cuda):
         flash_attention_heads(q.requires_grad_(True), k, v)
     with pytest.raises(RuntimeError, match=r"use_pallas=False"):
         ssd_scan_heads(x.requires_grad_(True), la, b, b)
+    assert _build.launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3-smoke",
+                                  "internvl2-26b-smoke"])
+def test_frontend_loss_on_the_kernel_route_raises_on_the_card(cuda, arch):
+    """Autograd through the kernel route refuses on the card, before any
+    launch, with the encoder and the frontend's embeds in the batch."""
+    _, model, batch = _frontend_lm(arch, cuda, True)
+    model.requires_grad_(True)
+    batch["targets"] = batch["tokens"]
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError, match=r"use_pallas=False"):
+        model.loss(batch)
     assert _build.launch_counts() == before
 
 

@@ -19,7 +19,11 @@ held at that model-level tolerance; its train states, each step started
 from the reference's previous state, at the train-state tolerance.  The
 MoE backward (router, dispatch, experts, the balance loss) is held at the
 train-state tolerance on ``mixtral-8x7b-smoke`` (2 layers, 4 experts, no
-Mamba), which is not chaotic.
+Mamba), which is not chaotic.  ``whisper-large-v3-smoke`` carries
+``audio_embeds`` in its batches (the encoder's gradient crosses every
+remat mode through the decoder's cross-attention) and
+``internvl2-26b-smoke`` ``image_embeds``; the other decoder-only configs
+(granite, llama4-maverick, the two stablelms) are held as the rest.
 """
 
 import jax
@@ -57,7 +61,11 @@ TINY = dict(name="tiny", family="dense", num_layers=2, d_model=32,
             num_heads=2, num_kv_heads=2, head_dim=16, d_ff=64,
             vocab_size=128)
 ARCHS = ["tiny", "jamba-1.5-large-398b-smoke", "mixtral-8x7b-smoke",
-         "mamba2-370m-smoke", "gemma3-4b-smoke"]
+         "mamba2-370m-smoke", "gemma3-4b-smoke", "whisper-large-v3-smoke",
+         "internvl2-26b-smoke", "granite-34b-smoke",
+         "llama4-maverick-400b-a17b-smoke", "stablelm-1.6b-smoke",
+         "stablelm-3b-smoke"]
+FRONTENDS = ["whisper-large-v3-smoke", "internvl2-26b-smoke"]
 GRAD_TOL = {"jamba-1.5-large-398b-smoke": MODEL_TOL}
 B, S = 4, 16
 
@@ -95,12 +103,23 @@ def port(arch, **flags):
 
 
 def batch(arch, seed=0):
-    """A seeded batch: random tokens and targets, ~20% of the mask off."""
-    V = _configs(arch)[1].vocab_size
+    """A seeded batch: random tokens and targets, ~20% of the mask off,
+    and the stub frontend's embeddings (``audio_embeds`` (B, S_enc, d) or
+    ``image_embeds`` (B, F, d)) for an audio or vision config."""
+    cfg = _configs(arch)[1]
+    V = cfg.vocab_size
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, V, (B, S)).astype(np.int32),
-            "targets": rng.integers(0, V, (B, S)).astype(np.int32),
-            "mask": (rng.random((B, S)) > 0.2).astype(np.float32)}
+    out = {"tokens": rng.integers(0, V, (B, S)).astype(np.int32),
+           "targets": rng.integers(0, V, (B, S)).astype(np.int32),
+           "mask": (rng.random((B, S)) > 0.2).astype(np.float32)}
+    if cfg.frontend == "audio":
+        out["audio_embeds"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["image_embeds"] = rng.normal(
+            size=(B, cfg.num_frontend_tokens, cfg.d_model)).astype(
+                np.float32)
+    return out
 
 
 def torch_batch(b):
@@ -250,7 +269,9 @@ TRAIN_CASES = [("tiny", 1, "none"), ("tiny", 2, "none"),
                ("jamba-1.5-large-398b-smoke", 2, "none"),
                ("mixtral-8x7b-smoke", 1, "none"),
                ("mamba2-370m-smoke", 1, "none"),
-               ("gemma3-4b-smoke", 2, "none")]
+               ("gemma3-4b-smoke", 2, "none"),
+               ("whisper-large-v3-smoke", 2, "none"),
+               ("internvl2-26b-smoke", 2, "none")]
 
 
 @pytest.mark.parametrize("arch,microbatch,compression", TRAIN_CASES)
@@ -320,6 +341,49 @@ def test_decay_follows_the_reference_rank():
     np.testing.assert_array_equal(np.asarray(want["ln_f"]), tree["ln_f"])
 
 
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_decay_follows_the_reference_rank_across_the_encoder(arch):
+    """whisper-smoke: the decoder's stacked ``ln_cross`` and the encoder's
+    stacked gammas have rank 2 in the reference and are decayed;
+    ``enc_ln_f`` has rank 1 and is not.  internvl2-smoke: the plain
+    decoder stack under a vision frontend.  The gammas start at 0.5 (the
+    init's zeros would hide any decay); a zero gradient isolates it."""
+    _, params, tree = reference(arch)
+
+    def half_gammas(t):
+        return {k: half_gammas(v) if isinstance(v, dict) else
+                (np.full_like(np.asarray(v), 0.5)
+                 if k.startswith(("ln", "enc_ln")) else v)
+                for k, v in t.items()}
+
+    params = jax.tree.map(jnp.asarray, half_gammas(tree))
+    cfg = dict(weight_decay=0.1, peak_lr=0.1, warmup_steps=0)
+    zeros = jax.tree.map(jnp.zeros_like, params)
+    want, _, _ = jax_adamw_update(
+        zeros, jax_adamw_init(params, JaxAdamWConfig(**cfg)), params,
+        jnp.asarray(1000), JaxAdamWConfig(**cfg))
+    model = load_reference_params(port(arch), jax.tree.map(np.asarray,
+                                                           params))
+    ranks = reference_ranks(model)
+    assert ranks == {n: np.ndim(a) for n, a in _port_named(
+        model, jax.tree.map(np.asarray, params)).items()}
+    state = init_state(model, AdamWConfig(**cfg))
+    grads = {n: torch.zeros_like(p) for n, p in state["params"].items()}
+    adamw_update(grads, state["opt"], state["params"], 1000,
+                 AdamWConfig(**cfg), ranks)
+    got = export_reference_params(model)
+    assert_trees_close(got, want, dict(rtol=1e-6, atol=0), "zero-grad step")
+    assert float(np.max(np.asarray(want["stack"]["pos0"]["ln1"]))) < 0.5
+    if get_config(arch).encoder_layers:
+        assert ranks["layers.0.ln_cross"] == 2 and ranks["enc_ln_f"] == 1
+        assert float(np.max(np.asarray(
+            want["stack"]["pos0"]["ln_cross"]))) < 0.5
+        assert float(np.max(np.asarray(
+            want["enc_stack"]["pos0"]["ln2"]))) < 0.5
+        np.testing.assert_array_equal(np.asarray(want["enc_ln_f"]), 0.5)
+        assert torch.all(got["enc_ln_f"] == 0.5)
+
+
 def _port_named(model, tree):
     """Each port parameter's reference leaf (the whole stacked array)."""
     flat = dict(_leaves(tree))
@@ -352,7 +416,9 @@ def test_kernel_wrappers_refuse_autograd():
             call(leaf)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b-smoke", "mamba2-370m-smoke"])
+@pytest.mark.parametrize("arch", ["gemma3-4b-smoke", "mamba2-370m-smoke",
+                                  "whisper-large-v3-smoke",
+                                  "internvl2-26b-smoke"])
 def test_loss_on_the_kernel_route_raises(arch):
     model = build_model(get_config(arch), RuntimeFlags(
         param_dtype="float32", compute_dtype="float32", use_pallas=True),
