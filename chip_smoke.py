@@ -113,7 +113,25 @@ just before it and read just after):
   teacher forcing; (c) ``whisper-large-v3-smoke`` and
   ``internvl2-26b-smoke`` in fp32, card against CPU from the same
   weights: prefill and decode logits and one train step with the
-  frontend's embeddings in the batch.
+  frontend's embeddings in the batch;
+* the LM stack on a ``torch.distributed`` DeviceMesh (phase 24): (a) 4
+  gloo ranks on the card answer whether gloo takes CUDA tensors for the
+  four collectives DTensor issues; (b) jamba cut to 3 layers, bf16, 2 x
+  4096, on a 2 x 2 ('data', 'model') gloo mesh if it does, else on a
+  one-rank NCCL mesh: every flash and SSD launch on each rank's LOCAL
+  heads (through ``local_map``) against its plain version, the gathered
+  logits against the one-rank prefill's, collective bytes and calls by
+  kind; (c) stablelm-1.6b whole, 5 train steps with the reference's
+  train flags (ZeRO-1) against 5 steps with no mesh (loss within 1e-2),
+  every moment's local shard as its placement says, and one fp32 FSDP
+  step of jamba- and gemma3-smoke against one rank's; (d) GPipe of
+  stablelm-1.6b's 24 layers as 4 stages of 6 on 4 gloo ranks on the card
+  (activations through the host), 8 microbatches of 1 x 2048, against
+  the sequential stack; (e) the LM dry run (fake backend, meta tensors)
+  in a subprocess: one cell per kind on the pod and multi-pod meshes and
+  jamba train_4k on the multi-pod one, each status the reference's
+  ``shape_applicable``'s.  ``tools/nccl_ranks.py --lm`` runs (b)-(c) on
+  a 2 x 2 NCCL mesh of 4 cards.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
 source, all started together) and prints ptxas's registers, shared memory
@@ -2528,7 +2546,7 @@ def expert_choices(model, batch: dict, microbatch: int) -> list:
     the same weights and microbatches."""
     seen, real = [], model_blocks.moe_apply
 
-    def spy(params, x, *, top_k, capacity_factor):
+    def spy(params, x, *, top_k, capacity_factor, rules=None):
         with fgg.ieee_fp32():
             probs = torch.softmax(x.float() @ params["router"], dim=-1)
         top = torch.topk(probs, min(top_k + 1, probs.shape[-1]), dim=-1)
@@ -2537,7 +2555,8 @@ def expert_choices(model, batch: dict, microbatch: int) -> list:
                else torch.ones_like(top.values[..., 0]))
         seen.append((top.indices[..., :top_k].sort(dim=-1).values.cpu(),
                      gap.cpu()))
-        return real(params, x, top_k=top_k, capacity_factor=capacity_factor)
+        return real(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                    rules=rules)
 
     n = batch["tokens"].shape[0] // microbatch
     model_blocks.moe_apply = spy
@@ -3171,11 +3190,631 @@ def phase_fe_card_vs_cpu(device: str = "cuda") -> dict:
     return out
 
 
-def lm_kernel_records(lm: dict, fe: dict) -> list:
+# ------------------------------- LM sharding, GPipe and the LM dry run
+# (phase 24).  (a) asks whether gloo takes CUDA tensors; (b)-(c) run the
+# LM stack on a DeviceMesh on the card: a 2 x 2 ('data', 'model') mesh of
+# 4 gloo ranks if it does, else a one-rank NCCL mesh (every placement
+# degenerate, every code path on CUDA); tools/nccl_ranks.py --lm runs them
+# at 2 x 2 over NCCL, one rank per card.  (d) GPipe over 4 gloo ranks on
+# the card (activations through the host), (e) the dry run in a
+# subprocess.
+GLOO_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+            "all_to_all_single")
+MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = "stablelm-1.6b", 5, 1e-2
+MESH_SMOKE_ARCHS = ("jamba-1.5-large-398b-smoke", "gemma3-4b-smoke")
+PP_ARCH, PP_STAGES, PP_MICRO, PP_S = "stablelm-1.6b", 4, 8, 2048
+DRY_CELLS = [(a, s, mp) for a, s in (("stablelm-1.6b", "train_4k"),
+                                     ("stablelm-1.6b", "prefill_32k"),
+                                     ("stablelm-1.6b", "decode_32k"))
+             for mp in (False, True)] + [
+    ("jamba-1.5-large-398b", "train_4k", True)]
+
+
+GLOO_PROBE_SIZES = ((torch.float32, 8), (torch.bfloat16, 8),
+                    (torch.bfloat16, 1 << 25),     # 64 MB
+                    (torch.bfloat16, 1 << 27))     # 256 MB: a big weight
+GLOO_PROBE_REPEATS = 3
+
+
+def _gloo_op(op: str, rank: int, n: int, dtype, numel: int, group=None,
+             dev="cuda:0") -> bool:
+    """One ``op`` on tensors of ``dev`` over ``group`` (``n`` ranks, this
+    one ``rank`` in it; None: the default group); True when the result is
+    right."""
+    import torch.distributed as dist
+    dev = torch.device(dev)
+    per = max(1, numel // n)
+    if op == "all_reduce":
+        t = torch.full((numel,), float(rank + 1), device=dev, dtype=dtype)
+        dist.all_reduce(t, group=group)
+        ok = bool((t == n * (n + 1) / 2).all())
+    elif op == "all_gather_into_tensor":
+        t = torch.full((per,), float(rank), device=dev, dtype=dtype)
+        o = torch.empty(per * n, device=dev, dtype=dtype)
+        dist.all_gather_into_tensor(o, t, group=group)
+        ok = bool((o.view(n, per) == torch.arange(
+            n, device=dev, dtype=dtype)[:, None]).all())
+    elif op == "reduce_scatter_tensor":
+        t = torch.full((per * n,), float(rank + 1), device=dev, dtype=dtype)
+        o = torch.empty(per, device=dev, dtype=dtype)
+        dist.reduce_scatter_tensor(o, t, group=group)
+        ok = bool((o == n * (n + 1) / 2).all())
+    else:
+        t = (torch.arange(n, device=dev, dtype=dtype) + 10 * rank)[
+            :, None].expand(n, per).contiguous().view(-1)
+        o = torch.empty_like(t)
+        dist.all_to_all_single(o, t, group=group)
+        ok = bool((o.view(n, per)[:, 0] == torch.arange(
+            n, device=dev, dtype=dtype) * 10 + rank).all())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return ok
+
+
+def gloo_cuda_op(rank: int, world: int, ops) -> str:
+    """``ops`` in order on CUDA tensors of card 0 over a gloo group and
+    over its halves (two-rank subgroups, as a 2 x 2 mesh's dims are), each
+    at every ``GLOO_PROBE_SIZES`` size, ``GLOO_PROBE_REPEATS`` times:
+    "ok", "wrong values", or the error's first line."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    half = world // 2
+    subs = [dist.new_group(list(range(i, i + half)))
+            for i in range(0, world, half)]
+    sub = subs[rank // half]
+    try:
+        ok = all(_gloo_op(op, r, n, dt, numel, g)
+                 for g, n, r in ((None, world, rank),
+                                 (sub, half, rank % half))
+                 for _ in range(GLOO_PROBE_REPEATS)
+                 for dt, numel in GLOO_PROBE_SIZES for op in ops)
+        return "ok" if ok else "wrong values"
+    except Exception as e:   # noqa: BLE001 — the answer, not a failure
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def gloo_cuda_dtensor(rank: int, world: int, dev: str = "cuda") -> str:
+    """DTensor's own redistributions on a 2 x 2 ('data', 'model') gloo mesh
+    of CUDA tensors, as the LM stack issues them: a split weight's
+    non-contiguous column chunk gathered back (ZeRO-1), a partial sum
+    reduced, and a vocabulary-split fp32 logits block (800 MB a rank)
+    gathered.  "ok", "wrong values", or the error's first line."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import distribute_tensor
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), device_type=dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        w = torch.randn(8192, 4096, device=dev, generator=g).bfloat16()
+        d = distribute_tensor(w, mesh, (Replicate(), Shard(0)))
+        cols = d.redistribute(mesh, (Shard(1), Shard(0)))
+        ok = torch.equal(cols.redistribute(mesh, (Replicate(), Shard(0)))
+                         .to_local(), d.to_local())
+        part = distribute_tensor(w, mesh, (Replicate(), Replicate()))
+        part = type(part).from_local(part.to_local(), mesh,
+                                     (Partial(), Replicate()))
+        ok &= torch.equal(part.full_tensor(), w * 2)
+        big = torch.randn(2, 2048, 50176, device=dev, generator=g)
+        bd = distribute_tensor(big, mesh, (Shard(0), Shard(2)))
+        ok &= torch.equal(bd.redistribute(mesh, (Shard(0), Replicate()))
+                          .to_local(), big[rank // 2:rank // 2 + 1])
+        return "ok" if ok else "wrong values"
+    except Exception as e:   # noqa: BLE001 — the answer, not a failure
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def phase_mesh_probe() -> dict:
+    """Phase 24 (a): each of the four collectives DTensor issues on CUDA
+    tensors of a 4-rank gloo group on the one card, and of its two-rank
+    subgroups (fp32 and bf16, 8 elements to 256 MB, three times), each op
+    in its own group, all four in sequence in a fifth, and DTensor's own
+    redistributions on a 2 x 2 mesh in a sixth (``gloo_cuda_dtensor``),
+    the six groups spawned together.  A rank that dies is an answer
+    ("no"), recorded, not a failed phase."""
+    import threading
+    t0 = time.perf_counter()
+    res: dict = {}
+    cases = {op: (gloo_cuda_op, (op,)) for op in GLOO_OPS}
+    cases["in_sequence"] = (gloo_cuda_op, GLOO_OPS)
+    cases["dtensor_2x2"] = (gloo_cuda_dtensor,)
+
+    def one(name):
+        try:
+            got = compat.run_local_group(cases[name][0], RANKS,
+                                         *cases[name][1:], timeout_s=60.0)
+            res[name] = got[0] if len(set(got)) == 1 else "; ".join(got)
+        except (RuntimeError, TimeoutError) as e:
+            res[name] = f"ranks failed: {str(e).splitlines()[0][:200]}"
+    threads = [threading.Thread(target=one, args=(c,)) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = {"ops": {c: res[c] for c in cases},
+           "gloo_takes_cuda": all(res[c] == "ok" for c in cases),
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (a) gloo on CUDA tensors, {RANKS} ranks on one card: "
+        + "; ".join(f"{k}: {v}" for k, v in out["ops"].items())
+        + f" -> (b)-(c) on "
+        + ("a 2 x 2 gloo mesh" if out["gloo_takes_cuda"]
+           else "a one-rank NCCL mesh") + f" ({out['seconds']:.1f} s)")
+    return out
+
+
+def _dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def mesh_collectives(fn) -> dict:
+    """Collective bytes (the reference's ring accounting) and calls by
+    kind of one call of ``fn`` on this rank (``launch.op_analysis``)."""
+    from repro_torch.launch.op_analysis import count_ops
+    _, st = count_ops(fn)
+    return {"bytes": st.collective_by_kind, "calls": st.collective_calls,
+            "flops": st.flops}
+
+
+def in_turn(build):
+    """``build()`` on each rank of the default group in turn (a barrier
+    after each), so the ranks sharing a card never hold their largest
+    temporaries at once, and each gives its allocator's cache back before
+    the next starts."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = build()
+            free_cuda()       # the whole tensors drawn, cached: give back
+        dist.barrier()
+    return out
+
+
+# the sharded bf16 logits may drift from the fp32 function at most this
+# many times as far as the one-rank bf16 logits do (RMS over the rank's
+# block): the partial sums of split products are rounded to bf16 once
+# more, and a token whose top-2 experts are a near tie may route apart
+MESH_LOGITS_RMS_FACTOR = 2.0
+
+
+def _load(t, block):
+    """``t[block]`` of a tensor or of a ``torch.save`` file (mapped)."""
+    if not torch.is_tensor(t):
+        t = torch.load(t, mmap=True)
+    return t[block]
+
+
+def sharded_logits_check(local, off, want, rank: int) -> dict:
+    """This rank's block of the sharded bf16 logits against the same block
+    of the one-rank fp32 logits (``want[1]``), beside the one-rank bf16
+    logits' (``want[0]``) distance from them: relative RMS within
+    ``MESH_LOGITS_RMS_FACTOR`` times that yardstick, all finite."""
+    block = tuple(slice(o, o + n) for o, n in zip(off, local.shape))
+    bf16, fp32 = (_load(t, block) for t in want)
+    sq = {"mesh": 0.0, "one_rank": 0.0, "ref": 0.0}
+    max_abs = 0.0
+    for i in range(0, local.shape[1], 512):          # a slice at a time
+        got = local[:, i:i + 512].float()
+        ref = fp32[:, i:i + 512].cuda().float()
+        one = bf16[:, i:i + 512].cuda().float()
+        assert bool(torch.isfinite(got).all()), f"rank {rank} logits"
+        sq["mesh"] += float((got - ref).square().sum())
+        sq["one_rank"] += float((one - ref).square().sum())
+        sq["ref"] += float(ref.square().sum())
+        max_abs = max(max_abs, max_err(got, one))
+        del got, ref, one
+    rms = {k: (sq[k] / sq["ref"]) ** 0.5 for k in ("mesh", "one_rank")}
+    assert rms["mesh"] <= MESH_LOGITS_RMS_FACTOR * rms["one_rank"], (
+        f"phase 24 (b) rank {rank}: sharded bf16 logits at relative RMS "
+        f"{rms['mesh']:.4g} from fp32, one rank's at {rms['one_rank']:.4g}")
+    return {"rel_rms": rms["mesh"], "one_rank_rel_rms": rms["one_rank"],
+            "max_abs_diff_to_one_rank": max_abs}
+
+
+def lm_mesh_rank(rank: int, world: int, shape: tuple, want_logits,
+                 want_losses, smoke_want) -> dict:
+    """Phase 24 (b)-(c) on one rank of the default group, on a ``shape``
+    ('data', 'model') mesh of CUDA devices: the sharded Jamba prefill
+    (each kernel launch against its plain version on its local operands,
+    each rank's block of the logits against ``want_logits``, the one-rank
+    bf16 and fp32 logits: ``sharded_logits_check``), the sharded stablelm
+    train steps (losses against ``want_losses``, ZeRO-1 local sizes), and
+    one FSDP step of each smoke config against ``smoke_want``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.launch.specs import default_flags
+    from repro_torch.models.lm import distribute_model
+    from repro_torch.parallel.local import global_offset
+    from repro_torch.train.train_step import make_state_shardings
+    import faulthandler
+    faulthandler.enable(all_threads=True)    # a crash names its line
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    out = {"rank": rank, "builds_before": _build.build_counts()}
+    mesh = make_mesh(shape, ("data", "model"), device_type="cuda")
+
+    # (b) jamba cut to 3 layers, bf16, 2 x 4096
+    cfg = lm_config()
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16")
+    rules = rules_for(cfg, mesh, flags)
+    # each parameter placed as it is drawn: no rank holds the whole model
+    model = in_turn(lambda: build_model(
+        cfg, flags, rules, device="cuda", seed=SEED, mesh=mesh))
+    tok = lm_tokens(2, LM_S_BF16)
+    with torch.no_grad():
+        model({"tokens": tok})                         # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launch_counts()
+        with capture_lm_kernels() as calls:
+            t0 = time.perf_counter()
+            logits = model({"tokens": tok})[0]
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        coll = mesh_collectives(lambda: model({"tokens": tok}))
+    assert launched == only(flash_attention=1, ssd_scan=2), launched
+    for name, recs in calls.items():
+        for args, _, res in recs:
+            assert not any(_dtensor(a) for a in (*args, res)), name
+    local, (b0, s0, v0) = logits.to_local(), global_offset(logits)[1]
+    del logits, model
+    free_cuda()
+    # the plain versions' fp32 scores: one rank at a time on the card
+    checked = in_turn(lambda: lm_check_calls(
+        calls, LM_BF16, f"phase 24 (b) rank {rank}"))
+    times = in_turn(lambda: lm_kernel_times(calls, plain=False, iters=3))
+    del calls
+    if want_logits is not None:
+        out["logits"] = sharded_logits_check(local, (b0, s0, v0),
+                                             want_logits, rank)
+    del local
+    free_cuda()
+    out["prefill"] = {"ms": prefill_ms, "launches": launched,
+                      "errs": checked["max_abs_err"],
+                      "kernel_ms": {k: t["kernel_ms"]
+                                    for k, t in times.items()},
+                      "collectives": coll}
+
+    # (c) stablelm-1.6b whole, the reference's flags for its train cell
+    cfg = get_config(MESH_TRAIN_ARCH)
+    flags = dataclasses.replace(default_flags(cfg, "train_4k", mesh),
+                                use_pallas=False)
+    rules = rules_for(cfg, mesh, flags)
+    model = in_turn(lambda: build_model(
+        cfg, flags, rules, device="cuda", seed=SEED, mesh=mesh))
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    state = init_state(model, opt)
+    sh = make_state_shardings(model, mesh, rules, zero1=flags.zero1)
+    for n, t in state["opt"]["m"].items():
+        assert tuple(t.placements) == sh["opt"]["m"][n], n
+        local, _ = global_offset(t)
+        assert tuple(t.to_local().shape) == tuple(local), n
+    step = make_train_step(model, opt)
+    data = iter(PackedLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                batch_size=TRAIN_B, seed=SEED))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    if want_losses is not None:
+        for got, want in zip(losses, want_losses):
+            assert abs(got - want) <= MESH_TRAIN_RTOL * abs(want), \
+                (losses, want_losses)
+    out["train"] = {
+        "flags": {k: getattr(flags, k) for k in ("fsdp", "zero1", "remat")},
+        "losses": losses, "step_ms": step_ms,
+        "tokens_per_s": TRAIN_B * TRAIN_S / (float(np.median(
+            step_ms[1:])) / 1e3),
+        "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+        "moment_local_bytes": sum(t.to_local().numel() * t.element_size()
+                                  for t in state["opt"]["m"].values())}
+    del state, model, step
+    free_cuda()
+
+    # (c) one fp32 FSDP step of each smoke config
+    out["smoke"] = {}
+    for arch in MESH_SMOKE_ARCHS:
+        cfg = get_config(arch)
+        flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                             use_pallas=False, fsdp=True)
+        rules = rules_for(cfg, mesh, flags)
+        model = distribute_model(build_model(cfg, flags, rules,
+                                             device="cuda", seed=SEED),
+                                 mesh, rules)
+        opt = AdamWConfig(warmup_steps=0)
+        state = init_state(model, opt)
+        state, met = make_train_step(model, opt)(
+            state, train_batch(cfg.vocab_size, TRAIN_CHECK_B,
+                               TRAIN_CHECK_S))
+        if smoke_want is not None:
+            want = smoke_want[arch]
+            np.testing.assert_allclose(float(met["loss"]), want["loss"],
+                                       **TRAIN_TOL)
+            for n, p in state["params"].items():
+                torch.testing.assert_close(
+                    p.full_tensor().detach().cpu(), want["params"][n],
+                    **TRAIN_TOL)
+            for n, t in state["opt"]["v"].items():
+                torch.testing.assert_close(t.full_tensor().cpu(),
+                                           want["v"][n], **TRAIN_TOL)
+        out["smoke"][arch] = float(met["loss"])
+        del state, model
+        free_cuda()
+    out["builds_after"] = _build.build_counts()
+    return out
+
+
+def one_rank_logits():
+    """Phase 24 (b)'s yardsticks: the cut Jamba's 2 x 4096 prefill logits
+    with no mesh in bf16 (and its warm ms) and in fp32, on the host."""
+    tok = lm_tokens(2, LM_S_BF16)
+    out, ms = [], None
+    for dtype in ("bfloat16", "float32"):
+        model, _ = lm_model(dtype)
+        with torch.no_grad():
+            if dtype == "bfloat16":
+                model({"tokens": tok})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = model({"tokens": tok})[0]
+            torch.cuda.synchronize()
+            ms = ms or (time.perf_counter() - t1) * 1e3
+            out.append(logits.cpu())
+        del model, logits
+        free_cuda()
+    return out, ms
+
+
+def one_rank_smoke_steps() -> dict:
+    """Phase 24 (c)'s yardstick: one fp32 step of each smoke config on one
+    card with no mesh (the weights and batch the mesh step takes)."""
+    out = {}
+    for arch in MESH_SMOKE_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg, RuntimeFlags(
+            param_dtype="float32", compute_dtype="float32",
+            use_pallas=False), device="cuda", seed=SEED)
+        opt = AdamWConfig(warmup_steps=0)
+        state, met = make_train_step(model, opt)(
+            init_state(model, opt),
+            train_batch(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S))
+        out[arch] = {"loss": float(met["loss"]),
+                     "params": {n: p.detach().cpu()
+                                for n, p in state["params"].items()},
+                     "v": {n: t.cpu() for n, t in state["opt"]["v"].items()}}
+        del state, model
+        free_cuda()
+    return out
+
+
+def one_rank_train_losses() -> dict:
+    """Phase 24 (c)'s one-rank run: the same weights, flags and batches
+    with no mesh."""
+    from repro_torch.launch.specs import default_flags
+    cfg = get_config(MESH_TRAIN_ARCH)
+    flags = dataclasses.replace(default_flags(cfg, "train_4k"),
+                                use_pallas=False)
+    model = build_model(cfg, flags, device="cuda", seed=SEED)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    state, step = init_state(model, opt), make_train_step(model, opt)
+    data = iter(PackedLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                batch_size=TRAIN_B, seed=SEED))
+    losses, step_ms = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    del state, model, step
+    free_cuda()
+    return {"losses": losses, "step_ms": step_ms}
+
+
+def phase_lm_mesh(probe: dict) -> dict:
+    """Phase 24 (b)-(c): the one-rank runs first (kept on the host and
+    freed), then the mesh runs against them."""
+    t0 = time.perf_counter()
+    want, one_ms = one_rank_logits()
+    one_train = one_rank_train_losses()
+    smoke = one_rank_smoke_steps()
+    if probe["gloo_takes_cuda"]:
+        TRAIN_WORK_DIR.parent.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=TRAIN_WORK_DIR.parent) as d:
+            paths = [str(Path(d) / f"logits_{i}.pt") for i in (0, 1)]
+            for t, path in zip(want, paths):
+                torch.save(t, path)
+            ranks = compat.run_local_group(
+                lm_mesh_rank, RANKS, (2, 2), paths, one_train["losses"],
+                smoke, timeout_s=GROUP_TIMEOUT_S * 4)
+        layout = "2x2 gloo"
+    else:
+        with one_rank_nccl():
+            ranks = [lm_mesh_rank(0, 1, (1, 1), want,
+                                  one_train["losses"], smoke)]
+        layout = "1x1 nccl"
+    for r in ranks:
+        # no nvcc in a rank: a spawned one finds every library built
+        assert r["builds_after"] == r["builds_before"], r
+        assert layout == "1x1 nccl" or r["builds_before"] == {}, r
+        p, t = r["prefill"], r["train"]
+        log(f"phase 24 (b) rank {r['rank']} ({layout}): jamba 3 layers bf16 "
+            f"2 x {LM_S_BF16} prefill {p['ms']:.1f} ms (one rank, no mesh: "
+            f"{one_ms:.1f} ms), launches {p['launches']}, kernel ms "
+            f"{p['kernel_ms']}, errs {p['errs']}, logits {r['logits']}; "
+            f"collectives "
+            f"{p['collectives']['calls']} calls, bytes "
+            f"{p['collectives']['bytes']}")
+        log(f"phase 24 (c) rank {r['rank']}: {MESH_TRAIN_ARCH} "
+            f"{t['flags']}: losses {[round(x, 4) for x in t['losses']]} "
+            f"(no mesh {[round(x, 4) for x in one_train['losses']]}), step "
+            f"ms {[round(x, 1) for x in t['step_ms']]} (no mesh "
+            f"{[round(x, 1) for x in one_train['step_ms']]}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, peak "
+            f"{t['peak_alloc_bytes'] / 1e9:.2f} GB, moments "
+            f"{t['moment_local_bytes'] / 1e9:.3f} GB local; FSDP smoke "
+            f"losses {r['smoke']}")
+    out = {"layout": layout, "one_rank_prefill_ms": one_ms,
+           "one_rank_train": one_train, "ranks": ranks,
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (b)-(c) took {out['seconds']:.1f} s")
+    return out
+
+
+def pipeline_rank(rank: int, world: int, tokens_np) -> dict:
+    """Phase 24 (d) on one rank of a gloo group sharing the card: stage
+    ``rank`` of ``PP_ARCH``'s layers (``num_layers / world`` each) over
+    ``PP_MICRO`` microbatches (the embedded tokens, the same on every
+    rank), through ``parallel.pipeline_apply``."""
+    from repro_torch.obs import REGISTRY as REG
+    from repro_torch.parallel import pipeline_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = {"rank": rank, "builds_before": _build.build_counts()}
+    cfg = get_config(PP_ARCH)
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, flags, device="cuda", seed=SEED)
+    per = cfg.num_layers // world
+    stage = list(model.layers[rank * per:(rank + 1) * per])
+
+    def stage_fn(layers, x):
+        for layer in layers:
+            x = model_blocks._block_apply(layer, x, cfg, flags)[0]
+        return x
+    with torch.no_grad():
+        x = model.embed["table"][torch.from_numpy(tokens_np).cuda()].to(
+            flags.cdtype)                       # (M, 1, S, d)
+        pipeline_apply(stage_fn, stage, x[:1])  # warm
+        torch.cuda.synchronize()
+        comm0 = REG.counter_total("pipeline.comm_ms")
+        t0 = time.perf_counter()
+        y = pipeline_apply(stage_fn, stage, x)
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["comm_ms"] = REG.counter_total("pipeline.comm_ms") - comm0
+    out["bytes"] = REG.counter_total("collective.bytes", op="send_recv")
+    if rank == 0:      # numpy: a tensor's shared memory dies with the rank
+        out["y"] = y.cpu().view(torch.int16).numpy()
+    out["builds_after"] = _build.build_counts()
+    return out
+
+
+def phase_pipeline() -> dict:
+    """Phase 24 (d): GPipe of ``PP_ARCH``'s layers as ``PP_STAGES`` stages
+    on as many gloo ranks on the card, against the sequential stack on
+    this process's card."""
+    from repro_torch.parallel import bubble_fraction
+    assert abs(bubble_fraction(PP_STAGES, PP_MICRO) - 3 / 11) < 1e-12
+    cfg = get_config(PP_ARCH)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (PP_MICRO, 1, PP_S))
+    t0 = time.perf_counter()
+    ranks = compat.run_local_group(pipeline_rank, PP_STAGES, tokens,
+                                   timeout_s=GROUP_TIMEOUT_S * 2)
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, flags, device="cuda", seed=SEED)
+    with torch.no_grad():
+        x = model.embed["table"][torch.from_numpy(tokens).cuda()].to(
+            flags.cdtype)
+        seq = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for m in range(PP_MICRO):
+            h = x[m]
+            for layer in model.layers:
+                h = model_blocks._block_apply(layer, h, cfg, flags)[0]
+            seq.append(h)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t1) * 1e3
+        want = torch.stack(seq)
+    got = torch.from_numpy(ranks[0].pop("y")).view(torch.bfloat16).cuda()
+    torch.testing.assert_close(got.float(), want.float(), **LM_BF16,
+                               msg=lambda m: f"phase 24 (d) GPipe: {m}")
+    err = max_err(got.float(), want.float())
+    del model, x, seq, want, got
+    free_cuda()
+    for r in ranks:
+        assert r["builds_before"] == {} and r["builds_after"] == {}, r
+    wall = max(r["wall_ms"] for r in ranks)
+    out = {"ranks": ranks, "max_abs_err": err, "wall_ms": wall,
+           "ms_per_microbatch": wall / PP_MICRO,
+           "sequential_ms_per_microbatch": seq_ms / PP_MICRO,
+           "bubble_fraction": bubble_fraction(PP_STAGES, PP_MICRO),
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (d) GPipe {PP_ARCH} {cfg.num_layers} layers as "
+        f"{PP_STAGES} stages, M={PP_MICRO} x 1 x {PP_S} bf16: "
+        f"{out['ms_per_microbatch']:.1f} ms per microbatch (sequential on "
+        f"one card {out['sequential_ms_per_microbatch']:.1f}), send/recv "
+        f"ms per rank {[round(r['comm_ms'], 1) for r in ranks]}, bytes "
+        f"{[int(r['bytes']) for r in ranks]}, bubble 3/11, max |err| vs "
+        f"the sequential stack {err:.3e} ({out['seconds']:.1f} s)")
+    return out
+
+
+DRY_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import shape_applicable
+from repro_torch.configs import get_config
+for arch, shape, mp in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, mp, skip_existing=False,
+                          results_dir=sys.argv[2])
+    rec["want"] = "ok" if shape_applicable(get_config(arch), shape)[0] \\
+        else "skipped"
+    print("CELL " + json.dumps(rec, default=str), flush=True)
+"""
+
+
+def phase_lm_dryrun() -> dict:
+    """Phase 24 (e): the LM dry run's cells in a subprocess (its fake
+    group never meets this process's groups): one cell per kind on both
+    meshes and jamba train_4k on the multi-pod mesh; each status the
+    reference's ``shape_applicable``'s, each row printed."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", DRY_SCRIPT, json.dumps(DRY_CELLS),
+         str(root / "build" / "dryrun_lm")],
+        env={**__import__("os").environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=600, cwd=root)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rows = [json.loads(ln[5:]) for ln in proc.stdout.splitlines()
+            if ln.startswith("CELL ")]
+    assert len(rows) == len(DRY_CELLS), proc.stdout[-3000:]
+    for r in rows:
+        assert r["status"] == r["want"], r
+        if r["status"] == "ok":
+            log(f"phase 24 (e) {r['arch']} {r['shape']} {r['mesh']}: "
+                f"bottleneck {r['bottleneck']}, t_compute "
+                f"{r['t_compute']:.4g} s, t_memory {r['t_memory']:.4g} s, "
+                f"t_collective {r['t_collective']:.4g} s, roofline "
+                f"fraction {r['roofline_fraction']:.3f}, step on meta "
+                f"{r['step_s']} s")
+    out = {"rows": rows, "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (e) LM dry run, {len(rows)} cells: "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def lm_kernel_records(lm: dict, fe: dict, lm_mesh: dict) -> list:
     """The ``kernels`` records of the LM path: times, bound and errors of
     the timed bf16 prefill (phase 13), with the fp32 (phase 12) and 32k
     (phase 14) errors and the 32k times beside them; flash also carries
-    phase 23's two prefills under ``paths``."""
+    phase 23's two prefills under ``paths``, and both phase 24's sharded
+    prefill (per rank)."""
     recs = []
     for name, src, line in (
             ("flash_attention", "flash_attention.cu",
@@ -3213,6 +3852,13 @@ def lm_kernel_records(lm: dict, fe: dict) -> list:
         })
     recs[0]["paths"] = {f"{fe[k]['arch']}_prefill": fe[k]["flash"]
                         for k in ("audio", "vision")}
+    for rec in recs:
+        rec.setdefault("paths", {})[
+            f"sharded_prefill_{lm_mesh['mesh']['layout'].replace(' ', '_')}"
+        ] = [{"launches": r["prefill"]["launches"][rec["name"]],
+              "max_abs_err": r["prefill"]["errs"][rec["name"]],
+              "ms": r["prefill"]["kernel_ms"][rec["name"]]}
+             for r in lm_mesh["mesh"]["ranks"]]
     return recs
 
 
@@ -3282,6 +3928,14 @@ def main() -> int:
     fe["seconds"] = time.perf_counter() - t0
     log(f"phase 23 (encoder, cross-attention, frontends) took "
         f"{fe['seconds']:.1f} s")
+    free_cuda()
+    t0 = time.perf_counter()
+    probe = phase_mesh_probe()
+    lm_mesh = {"probe": probe, "mesh": phase_lm_mesh(probe),
+               "pipeline": phase_pipeline(), "dryrun": phase_lm_dryrun()}
+    lm_mesh["seconds"] = time.perf_counter() - t0
+    log(f"phase 24 (LM sharding, GPipe, LM dry run) took "
+        f"{lm_mesh['seconds']:.1f} s")
 
     tot = timing["totals"]
     bound_ms, bound_by = bound(work, PEAK_FP32_CUDA_CORES)
@@ -3420,7 +4074,7 @@ def main() -> int:
                 ranks, "stream", "pairwise_gram")},
         "ptxas": build_s["ptxas"]["pairwise_gram"],
     })
-    kernels += lm_kernel_records(lm, fe)
+    kernels += lm_kernel_records(lm, fe, lm_mesh)
     for rec in kernels:
         if rec["name"] in ("flash_attention", "ssd_scan"):
             rec["ptxas"] = build_s["ptxas"][rec["name"]]
@@ -3443,7 +4097,7 @@ def main() -> int:
             "some_pairs": some, "stream_a2a": stream,
             "stream_x2y": stream_x2y, "sharded_one_rank": one_rank,
             "ranks": ranks, "mesh": mesh, "lm": lm, "train": train,
-            "frontends": fe,
+            "frontends": fe, "lm_mesh": lm_mesh,
             "kernels": kernels,
             "total_s": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

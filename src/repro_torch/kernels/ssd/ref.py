@@ -9,7 +9,9 @@
 
 Both take one head, ``x (S, P)``, ``log_a (S,)``, ``b``/``c (S, N)``, as the
 reference does, or any leading batch axes in front of those; the math is
-fp32 (TF32 off) and ``y`` has x's dtype.
+fp32 (TF32 off) and ``y`` has x's dtype.  On meta tensors (the LM dry
+run) each runs its loop body once and counts it once per position or
+chunk (``launch.op_analysis.meta_repeat``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t x_tᵀ ;  y_t = c_t · h_t."""
     S, P = x.shape[-2:]
+    if x.is_meta and S > 1:
+        return _meta(ssd_scan_ref, S, 1, x, log_a, b, c)
     N = b.shape[-1]
     xf, laf, bf, cf = x.float(), log_a.float(), b.float(), c.float()
     h = x.new_zeros((*x.shape[:-2], N, P), dtype=torch.float32)
@@ -38,10 +42,22 @@ def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     return torch.stack(ys, dim=-2).to(x.dtype)
 
 
+def _meta(fn, n: int, width: int, x, log_a, b, c):
+    """``fn`` over ``n`` runs of ``width`` positions, on meta tensors: one
+    run, counted ``n`` times."""
+    from ...launch.op_analysis import meta_repeat
+    seq = (Ellipsis, slice(0, width), slice(None))
+    return meta_repeat(fn, n, x.shape, (seq, (Ellipsis, slice(0, width)),
+                                        seq, seq), x, log_a, b, c)
+
+
 def ssd_scan_chunked(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
                      c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
     """Chunked SSD (same recurrence as ``ssd_scan_ref``)."""
     S, P = x.shape[-2:]
+    if x.is_meta and S > chunk:
+        return _meta(lambda *a: ssd_scan_chunked(*a, chunk=chunk),
+                     -(-S // chunk), chunk, x, log_a, b, c)
     N = b.shape[-1]
     lead = x.shape[:-2]
     if S == 0:

@@ -24,6 +24,10 @@ obs collective counters (what the collectives moved).
                     bytes by collective from the ``collective.bytes{op}``
                     counters, in the reference's ring accounting (all-gather
                     and all-to-all move their result bytes x (S-1)/S).
+  ``model_flops``, ``RooflineReport``, ``analyze_step`` — the LM dry run's
+                    row (``launch.dryrun``): the reference's report, its
+                    terms from ``launch.op_analysis``'s per-device counts of
+                    one step on the card's peaks (``HW``), never a TPU's.
 
 A plan-level model takes a plan (or a sequence of buckets, such as one
 rank's row blocks) plus ``(m, d, itemsize)``: ``m`` table rows (both
@@ -34,6 +38,7 @@ bytes.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -43,7 +48,8 @@ __all__ = ["HW", "H100_SXM", "PEAK_FP32_CUDA_CORES", "PEAK_BF16_TENSOR",
            "PEAK_HBM", "bound", "bucket_work", "work_model",
            "rect_bucket_work", "rect_work", "pairwise_bucket_work",
            "pairwise_work", "gathered_work", "Stats", "combine_stats",
-           "collective_snapshot", "collective_bytes_since"]
+           "collective_snapshot", "collective_bytes_since", "model_flops",
+           "RooflineReport", "analyze_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,3 +236,83 @@ def collective_bytes_since(snapshot: dict, num_ranks: int) -> dict:
         out["ops"] += int(now[op][1] - snapshot[op][1])
     out["total"] = sum(out[k] for k in _OPS.values())
     return out
+
+
+# ------------------------------------------------------------ LM dry run
+
+def model_flops(cfg, shape_name: str) -> float:
+    """Global useful FLOPs per step: 6 N_active D (train), 2 N D (prefill),
+    2 N B (decode step); no attention term (the reference's)."""
+    from ..configs.base import SHAPES
+    seq, batch, kind = SHAPES[shape_name]
+    n_active = cfg.active_param_count()
+    if kind == "train":
+        base = 6.0 * n_active * seq * batch
+    elif kind == "prefill":
+        base = 2.0 * n_active * seq * batch
+    else:
+        base = 2.0 * n_active * batch      # one token per request
+    return base
+
+
+@dataclasses.dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    num_devices: int
+    flops_per_device: float
+    bytes_per_device: float
+    collectives: dict
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    bottleneck: str
+    roofline_fraction: float
+    model_flops_global: float
+    useful_flops_ratio: float
+    memory_per_device: Optional[dict] = None
+    hbm_bytes_kernel_resident: float = 0.0
+    t_memory_kernel_resident: float = 0.0
+    roofline_fraction_kernel_resident: float = 0.0
+    bottleneck_kernel_resident: str = ""
+
+    def row(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def analyze_step(stats, *, arch: str, shape: str, mesh_name: str,
+                 num_devices: int, cfg=None, hw: HW = H100_SXM,
+                 memory: Optional[dict] = None) -> RooflineReport:
+    """The reference's ``analyze_compiled`` on one rank's
+    ``op_analysis.OpStats`` of one step: compute = FLOPs over the card's
+    bf16 peak, memory = HBM bytes over its memory rate, collective = moved
+    bytes over its link rate; the bottleneck is the largest term and the
+    roofline fraction compute over it.  ``memory`` is the per-device
+    ``{argument_bytes, output_bytes, temp_bytes, peak_bytes}`` (``None``
+    where not measured)."""
+    coll = dict(stats.collective_by_kind)
+    coll["total"] = stats.collective_bytes
+    coll["ops"] = stats.collective_ops
+    coll["calls"] = dict(stats.collective_calls)
+    t_c = stats.flops / hw.peak_flops
+    t_m = stats.hbm_bytes / hw.hbm_bw
+    t_x = stats.collective_bytes / hw.link_bw
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
+    frac = t_c / max(max(terms.values()), 1e-30)
+    mf = model_flops(cfg, shape) if cfg is not None else 0.0
+    t_m_res = stats.hbm_bytes_resident / hw.hbm_bw
+    terms_res = {"compute": t_c, "memory": t_m_res, "collective": t_x}
+    return RooflineReport(
+        arch=arch, shape=shape, mesh=mesh_name, num_devices=num_devices,
+        flops_per_device=stats.flops, bytes_per_device=stats.hbm_bytes,
+        collectives=coll, t_compute=t_c, t_memory=t_m, t_collective=t_x,
+        bottleneck=max(terms, key=terms.get), roofline_fraction=frac,
+        model_flops_global=mf,
+        useful_flops_ratio=mf / max(stats.flops * num_devices, 1e-30),
+        memory_per_device=memory,
+        hbm_bytes_kernel_resident=stats.hbm_bytes_resident,
+        t_memory_kernel_resident=t_m_res,
+        roofline_fraction_kernel_resident=t_c / max(
+            max(terms_res.values()), 1e-30),
+        bottleneck_kernel_resident=max(terms_res, key=terms_res.get))

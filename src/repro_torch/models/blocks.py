@@ -26,17 +26,20 @@ from torch.utils.checkpoint import (
 )
 
 from .layers import (
+    ATTN_AXES,
     AttnSpec,
     attn_apply,
     attn_init_cache,
     attn_shapes,
     make_params,
     mlp_apply,
+    mlp_axes,
     mlp_shapes,
     rms_norm,
 )
-from .mamba import mamba_apply, mamba_init_cache, mamba_shapes
-from .moe import moe_apply, moe_shapes
+from ..parallel.local import implicit_replication, is_dtensor
+from .mamba import MAMBA_AXES, mamba_apply, mamba_init_cache, mamba_shapes
+from .moe import MOE_AXES, moe_apply, moe_shapes
 
 __all__ = ["LayerSpec", "StackDef", "Layer", "stack_apply",
            "stack_init_cache"]
@@ -80,44 +83,69 @@ def _cross_spec(cfg) -> AttnSpec:
         head_dim=cfg.head_dim_(), window=0, causal=False, use_rope=False)
 
 
-def _norm_scale(d: int, device) -> nn.Parameter:
-    """An RMSNorm gamma (fp32, zero: the norm scales by ``1 + gamma``)."""
-    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
+def _norm_scale(d: int, device, place=None) -> nn.Parameter:
+    """An RMSNorm gamma (fp32, zero: the norm scales by ``1 + gamma``);
+    ``place`` (a ``MeshPlacer``) puts it on a mesh (logical axes
+    ``('embed',)``)."""
+    if place is None:
+        return nn.Parameter(torch.zeros(d, dtype=torch.float32,
+                                        device=device), requires_grad=False)
+    t = torch.zeros(place.box((d,), ("embed",))[1], dtype=torch.float32,
+                    device=device)
+    return nn.Parameter(place.wrap(t, (d,), ("embed",)),
                         requires_grad=False)
 
 
 class Layer(nn.Module):
     """One layer's parameters under the reference's names: ``ln1``,
     ``mixer``, ``cross`` / ``ln_cross`` when it attends to an encoder, and
-    ``ln2`` / ``ffn`` unless the FFN is ``'none'``."""
+    ``ln2`` / ``ffn`` unless the FFN is ``'none'``.  ``axes`` maps each
+    parameter's name within the layer to its logical axes (the
+    reference's ``_layer_init`` axes).  ``place`` (a
+    ``parallel.local.MeshPlacer``) builds each parameter as this rank's
+    part of it on a mesh."""
 
-    def __init__(self, spec: LayerSpec, cfg, flags, device,
-                 gen: torch.Generator):
+    def __init__(self, spec: LayerSpec, cfg, flags, device, gen,
+                 place=None):
         super().__init__()
         self.spec = spec
         dtype, d = flags.pdtype, cfg.d_model
-        self.ln1 = _norm_scale(d, device)
+        axes = {"ln1": ("embed",)}
+        self.ln1 = _norm_scale(d, device, place)
         if spec.mixer == "attn":
             shapes = attn_shapes(d, _attn_spec(spec, cfg), dtype)
+            mixer_axes = ATTN_AXES
         else:
             shapes = mamba_shapes(d, cfg.ssm_state, dtype)
-        self.mixer = make_params(shapes, device, gen)
+            mixer_axes = MAMBA_AXES
+        self.mixer = make_params(shapes, device, gen, place=place,
+                                 axes=mixer_axes)
+        axes.update({f"mixer.{k}": a for k, a in mixer_axes.items()})
         if spec.cross:
             self.cross = make_params(attn_shapes(d, _cross_spec(cfg), dtype),
-                                     device, gen)
-            self.ln_cross = _norm_scale(d, device)
+                                     device, gen, place=place,
+                                     axes=ATTN_AXES)
+            self.ln_cross = _norm_scale(d, device, place)
+            axes.update({f"cross.{k}": a for k, a in ATTN_AXES.items()})
+            axes["ln_cross"] = ("embed",)
         if spec.ffn != "none":
-            self.ln2 = _norm_scale(d, device)
+            self.ln2 = _norm_scale(d, device, place)
+            axes["ln2"] = ("embed",)
             if spec.ffn == "moe":
                 shapes = moe_shapes(d, cfg.d_ff, cfg.num_experts, dtype)
+                ffn_axes = MOE_AXES
             else:
                 shapes = mlp_shapes(d, cfg.d_ff, dtype,
                                     variant=cfg.mlp_variant)
-            self.ffn = make_params(shapes, device, gen)
+                ffn_axes = mlp_axes(cfg.mlp_variant)
+            self.ffn = make_params(shapes, device, gen, place=place,
+                                   axes=ffn_axes)
+            axes.update({f"ffn.{k}": a for k, a in ffn_axes.items()})
+        self.axes = axes
 
 
-def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None,
-                 enc_out=None):
+def _block_apply(layer: Layer, x, cfg, flags, rules=None, cache=None,
+                 positions=None, enc_out=None):
     """One layer: ``x + mixer(norm(x))``, then ``x + cross(norm(x),
     enc_out)`` in a decoder layer of an encoder-decoder, then ``x +
     ffn(norm(x))``.  Returns (x, new_cache, aux)."""
@@ -125,13 +153,13 @@ def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None,
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     if spec.mixer == "attn":
         y, mc = attn_apply(
-            layer.mixer, h, _attn_spec(spec, cfg),
+            layer.mixer, h, _attn_spec(spec, cfg), rules,
             cache=None if cache is None else cache["mixer"],
             positions=positions, use_kernels=flags.use_pallas,
             probs_dtype=getattr(torch, flags.attn_probs_dtype))
     else:
         y, mc = mamba_apply(
-            layer.mixer, h, cfg.mamba_meta(),
+            layer.mixer, h, cfg.mamba_meta(), rules,
             cache=None if cache is None else cache["mixer"],
             use_kernels=flags.use_pallas, ssd_impl=flags.ssd_impl)
     x = x + y
@@ -141,7 +169,7 @@ def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None,
             raise ValueError("a cross-attention layer needs enc_out")
         # the reference's call: plain attention, fp32 probabilities
         h = rms_norm(x, layer.ln_cross, cfg.norm_eps)
-        y, _ = attn_apply(layer.cross, h, _cross_spec(cfg),
+        y, _ = attn_apply(layer.cross, h, _cross_spec(cfg), rules,
                           use_kernels=False, kv_src=enc_out)
         x = x + y
     if spec.ffn != "none":
@@ -149,10 +177,10 @@ def _block_apply(layer: Layer, x, cfg, flags, cache=None, positions=None,
         if spec.ffn == "moe":
             y, moe_aux = moe_apply(
                 layer.ffn, h, top_k=cfg.experts_per_token,
-                capacity_factor=flags.capacity_factor)
+                capacity_factor=flags.capacity_factor, rules=rules)
             aux = aux + moe_aux["load_balance"]
         else:
-            y = mlp_apply(layer.ffn, h)
+            y = mlp_apply(layer.ffn, h, rules)
         x = x + y
     return x, (None if cache is None else {"mixer": mc}), aux
 
@@ -188,8 +216,8 @@ def _remat(fn, flags):
     raise ValueError(f"remat {flags.remat!r}: want 'none', 'full' or 'dots'")
 
 
-def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
-                positions=None, enc_out=None):
+def stack_apply(layers, stack: StackDef, x, cfg, flags, rules=None, *,
+                cache=None, positions=None, enc_out=None):
     """Every layer in order; ``enc_out`` reaches every cross-attention.
     Returns (x, new_cache, aux_sum).
 
@@ -203,11 +231,13 @@ def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
     new_cache = None if cache is None else []
 
     def superblock(x, block, enc_out):
-        aux_sb = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in layers[block * P:(block + 1) * P]:
-            x, _, a = _block_apply(layer, x, cfg, flags, positions=positions,
-                                   enc_out=enc_out)
-            aux_sb = aux_sb + a
+        # on a mesh also when the backward reruns it (remat)
+        with implicit_replication(is_dtensor(x)):
+            aux_sb = torch.zeros((), dtype=torch.float32, device=x.device)
+            for layer in layers[block * P:(block + 1) * P]:
+                x, _, a = _block_apply(layer, x, cfg, flags, rules,
+                                       positions=positions, enc_out=enc_out)
+                aux_sb = aux_sb + a
         return x, aux_sb
 
     n_scanned = 0
@@ -220,7 +250,7 @@ def stack_apply(layers, stack: StackDef, x, cfg, flags, *, cache=None,
         n_scanned = stack.n_blocks * P
     for i in range(n_scanned, len(layers)):
         x, nc, a = _block_apply(
-            layers[i], x, cfg, flags,
+            layers[i], x, cfg, flags, rules,
             cache=None if cache is None else cache[i], positions=positions,
             enc_out=enc_out)
         if cache is not None:

@@ -7,6 +7,10 @@ version on CPU tensors) when the kernel route is on, else the reference's
 plain scans.  Decode carries (conv window, ssm state) instead of a KV cache
 — O(1) per step.  Projections stay separate (x, z, B, C, dt) as in the
 reference, so weights carry across as copies.
+
+On a mesh the depthwise convolution runs on each rank's own rows and
+channels, and the scan kernel on each rank's own heads
+(``parallel.local``); activations are pinned at the reference's points.
 """
 
 from __future__ import annotations
@@ -18,9 +22,19 @@ import torch.nn.functional as F
 
 from ..kernels.pairwise.fused_gather_gram import ieee_fp32
 from ..kernels.ssd import ops as ssd_ops
+from ..parallel.local import is_dtensor, per_head, per_row
+from ..parallel.sharding import shard_constraint
 from .layers import _ein, rms_norm
 
-__all__ = ["mamba_shapes", "mamba_apply", "mamba_init_cache"]
+__all__ = ["mamba_shapes", "mamba_apply", "mamba_init_cache", "MAMBA_AXES"]
+
+MAMBA_AXES = {"w_x": ("embed", "act_mlp"), "w_z": ("embed", "act_mlp"),
+              "w_b": ("embed", None), "w_c": ("embed", None),
+              "w_dt": ("embed", "ssm_heads"), "conv_x": (None, "act_mlp"),
+              "conv_b": (None, None), "conv_c": (None, None),
+              "a_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+              "d_skip": ("ssm_heads",), "norm": ("act_mlp",),
+              "w_out": ("act_mlp", "embed")}
 
 CONV_K = 4  # depthwise conv kernel width
 
@@ -51,6 +65,24 @@ def mamba_shapes(d_model: int, ssm_state: int, dtype, *, head_dim: int = 64,
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  state: Optional[torch.Tensor] = None):
+    """:func:`_causal_conv_local` on each rank's own rows and channels
+    when ``x`` is a DTensor (its channels split as they are, ``w`` and the
+    state split to match)."""
+    if not is_dtensor(x):
+        return _causal_conv_local(x, w, state)
+    from torch.distributed.tensor import Replicate, Shard
+    x_pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                 for p in x.placements)
+    w_pl = tuple(Shard(1) if p == Shard(2) else Replicate() for p in x_pl)
+    args = [(x, x_pl), (w, w_pl)]
+    if state is not None:
+        args.append((state, x_pl))
+    return per_row(_causal_conv_local, x, *args,
+                   out_placements=(x_pl, x_pl))
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor,
+                       state: Optional[torch.Tensor] = None):
     """Depthwise causal conv along seq.  x (B,S,D), w (K,D).
 
     state (B, K-1, D) holds the trailing inputs for decode; returns
@@ -74,7 +106,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(y), xp[:, S:, :]
 
 
-def mamba_apply(params, x: torch.Tensor, meta: dict, *,
+def mamba_apply(params, x: torch.Tensor, meta: dict, rules=None, *,
                 cache: Optional[dict] = None, use_kernels: bool = True,
                 ssd_impl: str = "step"):
     """x (B, S, d_model) -> (B, S, d_model).  cache: {'conv_*', 'h'}."""
@@ -82,6 +114,7 @@ def mamba_apply(params, x: torch.Tensor, meta: dict, *,
     d_inner, H, N, P = meta["d_inner"], meta["H"], meta["N"], meta["P"]
 
     xs = _ein("bsd,de->bse", x, params["w_x"])
+    xs = shard_constraint(xs, rules, "batch", None, "act_mlp")
     z = _ein("bsd,de->bse", x, params["w_z"])
     b = _ein("bsd,dn->bsn", x, params["w_b"])
     c = _ein("bsd,dn->bsn", x, params["w_c"])
@@ -97,14 +130,15 @@ def mamba_apply(params, x: torch.Tensor, meta: dict, *,
     log_a = dt * a                                         # (B, S, H) <= 0
 
     xh = xs.reshape(B, S, H, P)
+    xh = shard_constraint(xh, rules, "batch", None, "ssm_heads", None)
     xh_dt = xh * dt[..., None].to(xh.dtype)                # dt-scaled input
     # one B and one C for every head: broadcast views, never copied
     bh = b[:, :, None, :].expand(B, S, H, N)
     ch = c[:, :, None, :].expand(B, S, H, N)
 
     if cache is None:
-        y = ssd_ops.ssd(xh_dt, log_a, bh, ch, use_kernel=use_kernels,
-                        impl=ssd_impl)
+        y = per_head(ssd_ops.ssd, xh_dt, log_a, bh, ch,
+                     use_kernel=use_kernels, impl=ssd_impl)
         new_h = None
     else:
         # step recurrence for decode (S small)
@@ -123,6 +157,7 @@ def mamba_apply(params, x: torch.Tensor, meta: dict, *,
     y = y.reshape(B, S, d_inner)
     y = rms_norm(y * F.silu(z), params["norm"], 1e-6)     # gated RMS norm
     out = _ein("bse,ed->bsd", y, params["w_out"])
+    out = shard_constraint(out, rules, "batch", None, "act_embed")
     new_cache = (None if cache is None else
                  {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc, "h": new_h})
     return out, new_cache

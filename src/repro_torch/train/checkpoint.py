@@ -6,7 +6,11 @@ and atomically renamed, so a crash mid-save never corrupts the latest
 checkpoint; the newest ``keep`` are kept.  Keys are the state tree's paths
 joined by ``/``; bf16 arrays are stored as their ``uint16`` bits (npz has
 no bf16) and the manifest records each array's dtype.  ``restore`` places
-the tensors on the caller's device.
+the tensors on the caller's device, or with ``shardings`` re-places them
+as DTensors on a mesh (any mesh: the one that saved them or another, the
+reference's elastic restore).  A state of DTensors is saved whole
+(``full_tensor()``, every rank takes part) and written by rank 0, in the
+same layout.
 
 An LM train state is saved in the REFERENCE's tree
 (:func:`state_to_reference`: scanned layers stacked along ``n_blocks``, as
@@ -26,12 +30,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
-from ..models.lm import LMModel, export_reference_params, \
-    load_reference_params, named_from_reference
+from ..models.lm import LMModel, distribute_tensor, \
+    export_reference_params, load_reference_params, named_from_reference, \
+    reference_paths
+from ..parallel.local import is_dtensor, whole
 
-__all__ = ["CheckpointManager", "state_to_reference", "state_from_reference"]
+__all__ = ["CheckpointManager", "state_to_reference", "state_from_reference",
+           "reference_shardings"]
 
 
 def _flatten(tree, prefix=""):
@@ -73,9 +81,25 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, extra: Optional[dict] = None) -> str:
         """Write ``state`` (a nested dict of tensors or arrays) as step
-        ``step``; returns the checkpoint's directory."""
+        ``step``; returns the checkpoint's directory.  DTensor leaves are
+        gathered whole on every rank; rank 0 writes, and every rank waits
+        until it has."""
+        flat = _flatten(state)
+        sharded = any(is_dtensor(v) for v in flat.values())
+        flat = {k: whole(v) for k, v in flat.items()}
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        if sharded and dist.get_rank() != 0:
+            dist.barrier()
+            return final
+        try:
+            return self._write(step, flat, extra, final)
+        finally:
+            if sharded:
+                dist.barrier()
+
+    def _write(self, step, flat, extra, final) -> str:
         arrays, dtypes = {}, {}
-        for k, v in _flatten(state).items():
+        for k, v in flat.items():
             arrays[k], dtypes[k] = _to_numpy(v)
         manifest = {
             "step": int(step),
@@ -85,7 +109,6 @@ class CheckpointManager:
             "shapes": {k: list(a.shape) for k, a in arrays.items()},
             "extra": extra or {},
         }
-        final = os.path.join(self.directory, f"step_{step:08d}")
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp_")
         try:
             np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -110,10 +133,13 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None, *, device=None,
-                template=None):
+                template=None, shardings=None):
         """Load a checkpoint (the latest when ``step`` is None) as a tree
         of tensors on ``device`` (``None`` means CUDA), cast to the dtypes
-        of ``template``'s leaves where it has them.  Returns ``(state,
+        of ``template``'s leaves where it has them.  ``shardings``, a tree
+        of ``(mesh, placements)`` keyed like the saved state (the leaves
+        it lacks stay whole), re-places each leaf as a DTensor on its
+        mesh, which need not be the one that saved it.  Returns ``(state,
         manifest)``, or ``(None, None)`` when there is no checkpoint."""
         dev = resolve_device(device)
         if step is None:
@@ -136,6 +162,9 @@ class CheckpointManager:
                 if k in want:
                     t = t.to(want[k].dtype)
                 flat[k] = t.to(dev)
+        if shardings is not None:
+            for k, (mesh, pl) in _flatten_shardings(shardings).items():
+                flat[k] = distribute_tensor(flat[k], mesh, pl)
         return _unflatten(flat), manifest
 
     # -------------------------------------------------------------------- gc
@@ -146,6 +175,43 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
+
+
+def _flatten_shardings(tree, prefix="") -> dict:
+    """``{'a/b': (mesh, placements)}`` of a shardings tree, whose leaves
+    are ``(mesh, placements)`` pairs."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten_shardings(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def reference_shardings(model: LMModel, state_shardings: dict,
+                        mesh) -> dict:
+    """A train state's placements (``train.make_state_shardings``, keyed by
+    parameter name) as ``restore(shardings=)`` takes them for a checkpoint
+    in the reference's tree: a scanned layer's stacked leaf keeps its
+    leading ``n_blocks`` axis whole, so each ``Shard(d)`` becomes
+    ``Shard(d + 1)`` there.  Stacked layers share one leaf: their
+    placements must agree, as the reference's stacked specs do."""
+    def tree(pl_by_name):
+        out: dict = {}
+        for name, (path, blk) in reference_paths(model).items():
+            pl = tuple(type(p)(p.dim + 1) if blk is not None and
+                       hasattr(p, "dim") else p for p in pl_by_name[name])
+            *parents, key = path.split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            if node.get(key, (mesh, pl)) != (mesh, pl):
+                raise ValueError(f"{path}: its layers are placed apart")
+            node[key] = (mesh, pl)
+        return out
+    return {"params": tree(state_shardings["params"]),
+            "opt": {k: tree(state_shardings["opt"][k]) for k in ("m", "v")},
+            "step": (mesh, state_shardings["step"])}
 
 
 def state_to_reference(model: LMModel, state: dict) -> dict:
@@ -162,12 +228,29 @@ def state_from_reference(model: LMModel, tree: dict) -> dict:
     """The inverse of :func:`state_to_reference` into ``model``: its
     parameters are filled from ``tree['params']`` (and made trainable);
     the moments are the tree's own tensors, moved to the model's device;
-    the step an int32 scalar there."""
+    the step an int32 scalar there.  On a model put on a mesh the moments
+    are placed by ``train.make_state_shardings`` (``flags.zero1``),
+    whether the tree's leaves are whole tensors or DTensors of another
+    placement."""
     load_reference_params(model, tree["params"])
     model.requires_grad_(True)
     dev = model.device
+    mesh = model.mesh
+    sh = None
+    if mesh is not None:
+        from .train_step import make_state_shardings
+        sh = make_state_shardings(model, mesh, model.rules,
+                                  zero1=model.flags.zero1)
+
+    def moment(k, n, t):
+        if sh is None:
+            return t.to(dev)
+        pl = sh["opt"][k][n]
+        if is_dtensor(t):
+            return t.redistribute(mesh, pl)
+        return distribute_tensor(t.to(dev), mesh, pl)
     return {"params": dict(model.named_parameters()),
-            "opt": {k: {n: t.to(dev) for n, t in named_from_reference(
+            "opt": {k: {n: moment(k, n, t) for n, t in named_from_reference(
                 model, tree["opt"][k]).items()} for k in ("m", "v")},
-            "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+            "step": torch.tensor(int(whole(tree["step"])), dtype=torch.int32,
                                  device=dev)}

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.local import is_dtensor
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
            "global_norm"]
 
@@ -55,9 +57,32 @@ def cosine_lr(step, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    leaves = [x.float().square().sum() for x in tree.values()]
-    return torch.sqrt(torch.stack(leaves).sum())
+    """sqrt of the sum of squares of every leaf, in fp32.  DTensor leaves
+    (one mesh) give the norm of the whole tensors: each rank sums the
+    squares of its own shards, each shard's sum divided by the number of
+    ranks holding a copy of it, and one all-reduce adds the ranks' sums
+    (a plain tensor)."""
+    leaves = list(tree.values())
+    if not (leaves and is_dtensor(leaves[0])):
+        return torch.sqrt(torch.stack([x.float().square().sum()
+                                       for x in leaves]).sum())
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    total = None
+    for x in leaves:
+        pl = [Replicate() if isinstance(p, Partial) else p
+              for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+        copies = 1
+        for i, p in enumerate(pl):
+            if isinstance(p, Replicate):
+                copies *= mesh.size(i)
+        part = x.to_local().float().square().sum() / copies
+        total = part if total is None else total + part
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.full_tensor())
 
 
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:

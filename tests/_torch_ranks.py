@@ -256,3 +256,125 @@ def dryrun_paths(rank, world, m, d, q):
     return {"rows": rows + [coded, stream],
             "sharded_gather_tensor_bytes": world * local * 4,
             "report": de.report_lines(rows + [coded, stream])}
+
+
+# ------------------------------------------------- LM stack on a DeviceMesh
+
+def pipeline_paths(rank, world, cases):
+    """GPipe over the default group: stage ``rank`` holds ``w[rank]`` of
+    each case ``(w (S, D, D), x (M, Bm, D))``; the stage is
+    ``tanh(h @ w)``."""
+    from repro_torch.parallel import pipeline_apply
+    torch.set_num_threads(1)
+    return {name: pipeline_apply(lambda p, h: torch.tanh(h @ p),
+                                 torch.from_numpy(w[rank]),
+                                 torch.from_numpy(x)).numpy()
+            for name, (w, x) in cases.items()}
+
+
+def _lm_batch(arch, case):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg, {k: torch.from_numpy(v) for k, v in case.items()}
+
+
+def lm_mesh_paths(rank, world, serve_cases, train_case, ckpt_dir):
+    """The LM stack on a 2 x 2 ('data', 'model') mesh of the default
+    group, fp32, weights from ``build_model(..., seed=0)``: per arch of
+    ``serve_cases`` the prefill logits (kernel route) and ``n`` decode
+    steps' logits; for ``train_case`` two train steps under each of FSDP
+    off / on x ZeRO-1 off / on (metrics, gathered parameters and moments,
+    every state leaf's placements against ``make_state_shardings``); the
+    ZeRO-1 state saved through ``CheckpointManager`` (rank 0 writes) and
+    restored onto a (4, 1) mesh by ``restore(shardings=)``."""
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models.lm import distribute_model
+    from repro_torch.train import AdamWConfig, CheckpointManager, \
+        init_state, make_train_step, state_from_reference, \
+        state_to_reference
+    from repro_torch.train.checkpoint import reference_shardings
+    from repro_torch.train.train_step import make_state_shardings
+    torch.set_num_threads(1)
+    mesh = make_local_mesh(model=2)
+    out = {"prefill": {}, "decode": {}, "train": {}}
+
+    def model_on(arch, mesh, seed=0, **kw):
+        cfg = _lm_batch(arch, {})[0]
+        flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                             **kw)
+        rules = rules_for(cfg, mesh, flags)
+        return distribute_model(build_model(cfg, flags, rules, device="cpu",
+                                            seed=seed), mesh, rules)
+
+    for arch, (case, n) in serve_cases.items():
+        cfg, batch = _lm_batch(arch, case)
+        m = model_on(arch, mesh)
+        with torch.no_grad():
+            out["prefill"][arch] = m(batch)[0].full_tensor().numpy()
+            B = batch["tokens"].shape[0]
+            cache = m.init_cache(B, n)
+            extra = {"enc_out": m._encode(batch["audio_embeds"])} \
+                if "audio_embeds" in batch else {}
+            steps = []
+            for t in range(n):
+                lg, cache = m.decode_step(cache, {
+                    "tokens": batch["tokens"][:, t:t + 1], "pos": t,
+                    **extra})
+                steps.append(lg.full_tensor().numpy())
+            out["decode"][arch] = steps
+
+    arch, case = train_case
+    _, batch = _lm_batch(arch, case)
+    opt = AdamWConfig(warmup_steps=1)
+    for fsdp in (False, True):
+        for zero1 in (False, True):
+            m = model_on(arch, mesh, use_pallas=False, fsdp=fsdp,
+                         zero1=zero1)
+            state = init_state(m, opt)
+            step = make_train_step(m, opt)
+            mets = []
+            for _ in range(2):
+                state, met = step(state, batch)
+                mets.append({k: float(v) for k, v in met.items()})
+            want = make_state_shardings(m, mesh, m.rules, zero1=zero1)
+            rec = {"metrics": mets,
+                   "params": {k: p.full_tensor().detach().numpy()
+                              for k, p in state["params"].items()},
+                   "opt": {k: {n: t.full_tensor().numpy()
+                               for n, t in state["opt"][k].items()}
+                           for k in ("m", "v")},
+                   "placements_ok": all(
+                       tuple(state[g][n].placements) == want[g][n]
+                       for g in ("params",) for n in state[g]) and all(
+                       tuple(state["opt"][k][n].placements)
+                       == want["opt"][k][n]
+                       for k in ("m", "v") for n in state["opt"][k]),
+                   "local_bytes": {n: t.to_local().numel()
+                                   for n, t in state["opt"]["m"].items()}}
+            out["train"][(fsdp, zero1)] = rec
+            if zero1 and not fsdp:
+                mgr = CheckpointManager(ckpt_dir)
+                mgr.save(2, state_to_reference(m, state))
+                mesh41 = make_mesh((4, 1), ("data", "model"))
+                m41 = model_on(arch, mesh41, seed=1, use_pallas=False,
+                               zero1=True)
+                sh = make_state_shardings(m41, mesh41, m41.rules)
+                tree, _ = mgr.restore(device="cpu", shardings=(
+                    reference_shardings(m41, sh, mesh41)))
+                st = state_from_reference(m41, tree)
+                out["restored"] = {
+                    "params": {k: p.full_tensor().detach().numpy()
+                               for k, p in st["params"].items()},
+                    "opt": {k: {n: t.full_tensor().numpy()
+                                for n, t in st["opt"][k].items()}
+                            for k in ("m", "v")},
+                    "step": int(st["step"]),
+                    "placements_ok": all(
+                        tuple(st["params"][n].placements)
+                        == sh["params"][n] for n in st["params"]) and all(
+                        tuple(st["opt"][k][n].placements)
+                        == sh["opt"][k][n]
+                        for k in ("m", "v") for n in st["opt"][k])}
+    return out

@@ -1206,3 +1206,96 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
         assert t.device.type == "cuda" and t.dtype == state["params"][k].dtype
         assert torch.equal(t.cpu(), state["params"][k])
     assert int(restored["step"]) == 3
+
+
+# ------------------------------------------- kernels on a mesh's local heads
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A one-rank NCCL group (file store) and its 1 x 1 ('data', 'model')
+    mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_under_local_map_on_a_one_rank_mesh(one_rank_mesh, dtype):
+    """``per_head`` hands each kernel plain local tensors (never a DTensor)
+    and returns a DTensor placed as the query; the launch counts rise by
+    one per call."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models.lm import distribute_tensor
+    from repro_torch.parallel.local import per_head
+    mesh = one_rank_mesh
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 128, 8, 64, device="cuda", generator=g).to(dtype)
+    k = torch.randn(2, 128, 2, 64, device="cuda", generator=g).to(dtype)
+    v = torch.randn(2, 128, 2, 64, device="cuda", generator=g).to(dtype)
+    pl = (Shard(0), Shard(2))
+    qd, kd, vd = (distribute_tensor(t, mesh, pl) for t in (q, k, v))
+    seen = []
+    real = flash_ops.flash_attention_heads
+
+    def spy(*a, **kw):
+        seen.append([type(t) for t in a])
+        return real(*a, **kw)
+    flash_ops.flash_attention_heads = spy
+    _build.reset_launch_counts()
+    try:
+        out = per_head(flash_ops.mha, qd, kd, vd, causal=True,
+                       use_kernel=True)
+    finally:
+        flash_ops.flash_attention_heads = real
+    assert isinstance(out, DTensor) and tuple(out.placements) == pl
+    assert seen == [[torch.Tensor] * 3]
+    assert _build.launch_counts().get("flash_attention") == 1
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 \
+        else dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out.to_local().float(), mha_ref(
+        q, k, v, causal=True).float(), **tol)
+    x = torch.randn(2, 256, 4, 64, device="cuda", generator=g).to(dtype)
+    la = -torch.rand(2, 256, 4, device="cuda", generator=g)
+    b = torch.randn(2, 256, 1, 16, device="cuda", generator=g).to(dtype)
+    b = b.expand(2, 256, 4, 16)
+    c = b.clone()
+    xd = distribute_tensor(x, mesh, pl)
+    lad = distribute_tensor(la, mesh, pl)
+    bd, cd = (distribute_tensor(t, mesh, (Shard(0), Replicate()))
+              for t in (b, c))
+    y = per_head(ssd, xd, lad, bd, cd, use_kernel=True)
+    assert _build.launch_counts().get("ssd_scan") == 1
+    want = ssd(x, la, b, c, use_kernel=False, impl="chunked")
+    torch.testing.assert_close(y.to_local().float(), want.float(),
+                               **(dict(rtol=2e-4, atol=2e-4)
+                                  if dtype == torch.float32 else
+                                  dict(rtol=3e-2, atol=3e-2)))
+
+
+@pytest.mark.parametrize("H,Hkv,ranks", [(8, 2, 2), (6, 2, 3), (48, 1, 16),
+                                         (4, 4, 2)])
+def test_flash_on_local_heads_reads_the_global_kv_head(cuda, H, Hkv, ranks):
+    """The KV heads ``per_head`` selects for model-rank r's query heads
+    (global heads r·H/ranks ..) when the KV heads are replicated: the
+    kernel on them equals the global attention's slice — the GQA offset
+    of a split query against whole KV heads."""
+    from repro_torch.parallel.local import _head_select
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(1, 96, H, 64, device="cuda", generator=g)
+    k = torch.randn(1, 96, Hkv, 64, device="cuda", generator=g)
+    v = torch.randn(1, 96, Hkv, 64, device="cuda", generator=g)
+    want = mha_ref(q, k, v, causal=True)
+    h_loc, G = H // ranks, H // Hkv
+    for r in range(ranks):
+        need = (r * h_loc + torch.arange(h_loc)) // G
+        sel = _head_select(need, 2)
+        got = flash_attention_heads(q[:, :, r * h_loc:(r + 1) * h_loc],
+                                    sel(k), sel(v), causal=True)
+        torch.testing.assert_close(
+            got, want[:, :, r * h_loc:(r + 1) * h_loc], rtol=2e-4,
+            atol=2e-4)

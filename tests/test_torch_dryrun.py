@@ -20,6 +20,7 @@ package, on the CPU.
 """
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -351,19 +352,48 @@ def test_dryrun_main_on_the_cpu(tmp_path):
 
 
 # ------------------------------------------------------------- obs report
+# entries the demo may add to a cache; the caps are raised by this much
+# above what the process already holds, so the demo evicts nothing
+DEMO_CACHE_ROOM = 64
+
+
+def _make_room(pkg: str):
+    """Room in package ``pkg``'s caches for the demo, through their public
+    functions: the jit / upload LRU and the block cache get caps above
+    their present size plus ``DEMO_CACHE_ROOM``, ``PLAN_CACHE`` is
+    cleared.  Earlier test files on the same worker may have filled either
+    package's LRU, and an eviction is an event the other package's demo
+    does not emit.  Returns a function that restores the caps."""
+    mr = importlib.import_module(f"{pkg}.mapreduce")
+    core = importlib.import_module(f"{pkg}.core")
+    jit, blk = mr.jit_cache_stats(), mr.block_cache_stats()
+    mr.configure_jit_cache(jit["size"] + DEMO_CACHE_ROOM)
+    mr.configure_block_cache(blk["max_size"] + DEMO_CACHE_ROOM)
+    core.PLAN_CACHE.clear()
+
+    def restore():
+        mr.configure_jit_cache(jit["max_size"])
+        mr.configure_block_cache(blk["max_size"])
+    return restore
+
+
 def _demo_doc(report, obs):
     """The demo's document, with the ledger records the demo took (the
     ledger's sequence number counts every record the process took)."""
-    obs.reset_all()
-    seq = obs.LEDGER.seq
-    report.run_demo(**({"device": "cpu"} if "repro_torch" in
-                       report.__name__ else {}))
-    doc = report.gather()
+    port = "repro_torch" in report.__name__
+    restore = _make_room("repro_torch" if port else "repro")
+    try:
+        obs.reset_all()
+        seq = obs.LEDGER.seq
+        report.run_demo(**({"device": "cpu"} if port else {}))
+        doc = report.gather()
+    finally:
+        restore()
     doc["ledger"]["records"] -= seq
     return doc
 
 
-def test_obs_report_demo_matches_reference(tmp_path):
+def _demo_matches_reference(tmp_path):
     import repro.launch.obs_report as ref_report
     import repro.obs as ref_obs
     import repro_torch.obs as port_obs
@@ -385,3 +415,25 @@ def test_obs_report_demo_matches_reference(tmp_path):
     spans = json.loads(trace.read_text())
     assert spans["traceEvents"], spans
     port_obs.reset_all()
+
+
+def test_obs_report_demo_matches_reference(tmp_path):
+    _demo_matches_reference(tmp_path)
+
+
+def test_obs_report_demo_after_a_full_reference_jit_cache(tmp_path):
+    """The comparison after earlier work filled the reference's jit LRU to
+    its cap, as test files that ran before on the same worker can: the
+    demo must still emit the same events as the port's."""
+    import repro.mapreduce.engine as ref_engine
+    cap = ref_engine.jit_cache_stats()["max_size"]
+    keys = [("filler", i) for i in range(cap)]
+    for k in keys:
+        ref_engine._cache_get(k, lambda: None)
+    try:
+        assert ref_engine.jit_cache_stats()["size"] == cap
+        _demo_matches_reference(tmp_path)
+    finally:
+        for k in keys:
+            ref_engine._JIT_CACHE.pop(k, None)
+            ref_engine._JIT_CACHE_HITS.pop(k, None)

@@ -50,7 +50,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "launch.roofline", "launch.dryrun_engine",
                 "launch.obs_report", "launch.train_lm", "train",
                 "train.optimizer", "train.train_step", "train.checkpoint",
-                "train.elastic", "data", "data.pipeline"):
+                "train.elastic", "data", "data.pipeline", "parallel",
+                "parallel.sharding", "parallel.local", "parallel.pipeline",
+                "launch.mesh", "launch.rules", "launch.specs",
+                "launch.op_analysis", "launch.dryrun", "launch.sweep_opt"):
         assert f"repro_torch.{mod}" in mods, mod
     code = (
         "import importlib, sys\n"
