@@ -130,7 +130,14 @@ just before it and read just after):
   the sequential stack; (e) the LM dry run (fake backend, meta tensors)
   in a subprocess: one cell per kind on the pod and multi-pod meshes and
   jamba train_4k on the multi-pod one, each status the reference's
-  ``shape_applicable``'s.  ``tools/nccl_ranks.py --lm`` runs (b)-(c) on
+  ``shape_applicable``'s, each row with its per-device peak bytes; (f)
+  the dry run's memory count held on the card: four witnesses (stablelm
+  train and decode, jamba cut to 3 layers prefill, mamba2-370m cut to 4
+  layers train on the per-position SSD loop) counted on meta in (e)'s
+  subprocess on a fake 1 x 1 mesh, then run on the card on a one-rank
+  NCCL mesh with the same flags, the counter on the card's own tensors
+  beside ``torch.cuda.max_memory_allocated``'s high-water above the
+  arguments (within 5%).  ``tools/nccl_ranks.py --lm`` runs (b)-(c) on
   a 2 x 2 NCCL mesh of 4 cards.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
@@ -172,6 +179,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -218,6 +226,7 @@ from repro_torch.mapreduce.engine import (  # noqa: E402
 from repro_torch.obs import LEDGER, REGISTRY  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import dryrun_engine as dryrun  # noqa: E402
+from repro_torch.launch.op_analysis import OpCounter  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HW,
     PEAK_BF16_TENSOR,
@@ -3203,6 +3212,16 @@ GLOO_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
 MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = "stablelm-1.6b", 5, 1e-2
 MESH_SMOKE_ARCHS = ("jamba-1.5-large-398b-smoke", "gemma3-4b-smoke")
 PP_ARCH, PP_STAGES, PP_MICRO, PP_S = "stablelm-1.6b", 4, 8, 2048
+# (f): (arch, depth cut or None, shape, (seq, global batch)), each with
+# default_flags on a 1 x 1 mesh.  mamba2 at 4 x 512: the per-position SSD
+# loop's saved states (1 MB per position and sequence) set the peak there,
+# and 512 positions halve the eager loop's time against 2 x 1024 (at 1 x
+# 1024 AdamW's fp32 temporaries set it and the repeat rule goes unchecked)
+MEM_WITNESSES = [("stablelm-1.6b", None, "train_4k", (2048, 4)),
+                 ("jamba-1.5-large-398b", 3, "prefill_32k", (4096, 2)),
+                 ("mamba2-370m", 4, "train_4k", (512, 4)),
+                 ("stablelm-1.6b", None, "decode_32k", (4096, 8))]
+MEM_RTOL = 0.05
 DRY_CELLS = [(a, s, mp) for a, s in (("stablelm-1.6b", "train_4k"),
                                      ("stablelm-1.6b", "prefill_32k"),
                                      ("stablelm-1.6b", "decode_32k"))
@@ -3765,7 +3784,7 @@ def phase_pipeline() -> dict:
 
 
 DRY_SCRIPT = """
-import json, sys
+import dataclasses, json, sys, time
 from repro_torch.launch import dryrun
 from repro_torch.launch.specs import shape_applicable
 from repro_torch.configs import get_config
@@ -3775,6 +3794,17 @@ for arch, shape, mp in json.loads(sys.argv[1]):
     rec["want"] = "ok" if shape_applicable(get_config(arch), shape)[0] \\
         else "skipped"
     print("CELL " + json.dumps(rec, default=str), flush=True)
+for arch, layers, shape, seq_batch in json.loads(sys.argv[3]):
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    stats, ctx = dryrun.lower_cell(
+        arch, shape, False, mesh_shape=((1, 1), ("data", "model")), cfg=cfg,
+        seq_batch=tuple(seq_batch))
+    print("WITNESS " + json.dumps({
+        "memory": ctx["memory"], "live_peak": stats.live_peak,
+        "seconds": time.perf_counter() - t0}), flush=True)
 """
 
 
@@ -3782,30 +3812,132 @@ def phase_lm_dryrun() -> dict:
     """Phase 24 (e): the LM dry run's cells in a subprocess (its fake
     group never meets this process's groups): one cell per kind on both
     meshes and jamba train_4k on the multi-pod mesh; each status the
-    reference's ``shape_applicable``'s, each row printed."""
+    reference's ``shape_applicable``'s, each row printed.  Then (f)'s
+    witnesses on a fake 1 x 1 mesh (``witnesses``: each one's memory
+    fields, counted on meta)."""
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent
     proc = subprocess.run(
         [sys.executable, "-c", DRY_SCRIPT, json.dumps(DRY_CELLS),
-         str(root / "build" / "dryrun_lm")],
+         str(root / "build" / "dryrun_lm"), json.dumps(MEM_WITNESSES)],
         env={**__import__("os").environ, "PYTHONPATH": str(root / "src")},
         capture_output=True, text=True, timeout=600, cwd=root)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     rows = [json.loads(ln[5:]) for ln in proc.stdout.splitlines()
             if ln.startswith("CELL ")]
     assert len(rows) == len(DRY_CELLS), proc.stdout[-3000:]
+    wit = [json.loads(ln[8:]) for ln in proc.stdout.splitlines()
+           if ln.startswith("WITNESS ")]
+    assert len(wit) == len(MEM_WITNESSES), proc.stdout[-3000:]
     for r in rows:
         assert r["status"] == r["want"], r
         if r["status"] == "ok":
+            mem = r["memory_per_device"]
+            assert r["peak_counted_on"] == "meta", r
+            assert mem["peak_bytes"] >= mem["argument_bytes"] > 0, r
             log(f"phase 24 (e) {r['arch']} {r['shape']} {r['mesh']}: "
                 f"bottleneck {r['bottleneck']}, t_compute "
                 f"{r['t_compute']:.4g} s, t_memory {r['t_memory']:.4g} s, "
                 f"t_collective {r['t_collective']:.4g} s, roofline "
-                f"fraction {r['roofline_fraction']:.3f}, step on meta "
+                f"fraction {r['roofline_fraction']:.3f}, peak "
+                f"{mem['peak_bytes'] / 1e9:.3f} GB per device (arguments "
+                f"{mem['argument_bytes'] / 1e9:.3f}, temp "
+                f"{mem['temp_bytes'] / 1e9:.3f}), step on meta "
                 f"{r['step_s']} s")
-    out = {"rows": rows, "seconds": time.perf_counter() - t0}
+    out = {"rows": rows, "witnesses": wit,
+           "seconds": time.perf_counter() - t0}
     log(f"phase 24 (e) LM dry run, {len(rows)} cells: "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+class ThreadCounter(OpCounter):
+    """``OpCounter`` that also notes the threads its ops ran on (the
+    backward of a CUDA step runs on autograd's device thread)."""
+
+    def __init__(self, device: str):
+        super().__init__(device)
+        self.threads: set = set()
+
+    def _count(self, func, args, kwargs, out) -> None:
+        self.threads.add(threading.get_ident())
+        super()._count(func, args, kwargs, out)
+
+
+def witness_config(arch: str, layers):
+    cfg = get_config(arch)
+    return cfg if not layers else dataclasses.replace(cfg, num_layers=layers)
+
+
+def memory_on_card(witness, mesh) -> dict:
+    """One witness's step on the card, with the flags the dry run gives it
+    on a 1 x 1 mesh: a warm-up step (cuBLAS workspaces, the allocator's
+    pools), then the counted one, ``max_memory_allocated`` read from
+    ``reset_peak_memory_stats``."""
+    from repro_torch.launch.dryrun import cell_step
+    from repro_torch.launch.specs import default_flags
+    arch, layers, shape, seq_batch = witness
+    cfg = witness_config(arch, layers)
+    flags = default_flags(cfg, shape, mesh)
+    t0 = time.perf_counter()
+    run, _ = cell_step(cfg, shape, flags, mesh, seq_batch=tuple(seq_batch),
+                       device="cuda", seed=SEED)
+    t1 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counter = ThreadCounter("cuda")
+    t1 = time.perf_counter()
+    with counter:
+        out = run()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    measured = torch.cuda.max_memory_allocated() - base
+    del out, run
+    free_cuda()
+    return {"measured": measured, "counted_cuda": counter.stats.live_peak,
+            "threads": len(counter.threads), "step_s": step_s,
+            "warm_step_s": warm_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_lm_memory(dry: dict, card: dict) -> dict:
+    """Phase 24 (f): each witness's meta prediction (``peak_bytes -
+    argument_bytes`` from (e)'s subprocess) and the counter on the card's
+    own tensors against the allocator's high-water above the arguments,
+    on a one-rank NCCL mesh; each within ``MEM_RTOL`` of the measured."""
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    rows = []
+    with one_rank_nccl():
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for w, meta in zip(MEM_WITNESSES, dry["witnesses"]):
+            got = memory_on_card(w, mesh)
+            mem = meta["memory"]
+            got["predicted"] = mem["peak_bytes"] - mem["argument_bytes"]
+            got["memory_meta"] = mem
+            got["meta_s"] = meta["seconds"]
+            got["witness"] = w
+            rows.append(got)
+            arch, layers, shape, (seq, batch) = w
+            log(f"phase 24 (f) {arch}{f' ({layers} layers)' if layers else ''}"
+                f" {shape} {batch} x {seq}: high-water above the arguments "
+                f"{got['measured'] / 1e9:.4f} GB (max_memory_allocated), "
+                f"counted on the card {got['counted_cuda'] / 1e9:.4f} GB, "
+                f"predicted on meta {got['predicted'] / 1e9:.4f} GB "
+                f"({got['predicted'] / got['measured'] - 1:+.2%}); "
+                f"arguments {mem['argument_bytes'] / 1e9:.3f} GB, peak "
+                f"{mem['peak_bytes'] / 1e9:.3f} GB; ops on "
+                f"{got['threads']} threads; step {got['warm_step_s']:.2f} s, "
+                f"{got['step_s']:.2f} s counted | {card['smi']}")
+    for r in rows:
+        for k in ("predicted", "counted_cuda"):
+            assert abs(r[k] - r["measured"]) <= MEM_RTOL * r["measured"], \
+                (k, r)
+    out = {"rows": rows, "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (f) memory witnesses: {out['seconds']:.1f} s")
     return out
 
 
@@ -3933,6 +4065,8 @@ def main() -> int:
     probe = phase_mesh_probe()
     lm_mesh = {"probe": probe, "mesh": phase_lm_mesh(probe),
                "pipeline": phase_pipeline(), "dryrun": phase_lm_dryrun()}
+    free_cuda()
+    lm_mesh["memory"] = phase_lm_memory(lm_mesh["dryrun"], card)
     lm_mesh["seconds"] = time.perf_counter() - t0
     log(f"phase 24 (LM sharding, GPipe, LM dry run) took "
         f"{lm_mesh['seconds']:.1f} s")

@@ -11,8 +11,15 @@ AdamW, prefill = forward, decode = ``decode_step``.  Nothing is
 allocated.  Success proves the sharding config is coherent;
 ``launch.op_analysis`` counts this rank's FLOPs, HBM bytes and collective
 bytes op by op, and ``launch.roofline.analyze_step`` turns them into the
-reference's row on an H100's peaks.  Argument and output bytes are the
-local shards'; no peak is measured on meta (``peak_bytes`` null).
+reference's row on an H100's peaks.  ``memory_per_device`` is this rank's
+bytes, counted on meta during that step (``op_analysis``: each storage
+rounded as the CUDA caching allocator rounds it): ``argument_bytes`` and
+``output_bytes`` the local shards of the step's arguments and results,
+``peak_bytes`` the arguments plus the largest live allocation during the
+step, ``temp_bytes`` that allocation less what the step still holds when
+it returns (never below 0).  Records say ``"peak_counted_on": "meta"``;
+``chip_smoke.py``'s phase 24 (f) holds the count against
+``torch.cuda.max_memory_allocated`` on the card.
 
 The module initialises the fake group itself (one per mesh size) and
 refuses to run in a process that already has a real group.  Decode runs at
@@ -50,7 +57,8 @@ from .roofline import analyze_step
 from .rules import rules_for
 from .specs import default_flags, input_specs, shape_applicable
 
-__all__ = ["lower_cell", "run_cell", "main", "RESULTS_DIR"]
+__all__ = ["lower_cell", "run_cell", "cell_step", "memory_fields", "main",
+           "RESULTS_DIR"]
 
 RESULTS_DIR = os.path.abspath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "build", "dryrun_lm"))
@@ -78,13 +86,82 @@ def _local_bytes(tree) -> int:
                                 else t) for t in leaves))
 
 
+def _draw_inputs(specs: dict, vocab: int, device, seed: int = 0) -> dict:
+    """Real tensors on ``device`` in place of the meta ``specs``: tokens
+    and targets below ``vocab``, a mask of ones, embeddings ~ N(0, 0.02²),
+    all from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, t in specs.items():
+        if k == "mask":
+            v = torch.ones(t.shape, dtype=t.dtype)
+        elif t.dtype.is_floating_point:
+            v = (torch.randn(t.shape, generator=g) * 0.02).to(t.dtype)
+        else:
+            v = torch.randint(0, vocab, t.shape, generator=g, dtype=t.dtype)
+        out[k] = v.to(device)
+    return out
+
+
+def cell_step(cfg, shape: str, flags, mesh=None, *, seq_batch=None,
+              device="meta", seed: int = 0):
+    """One cell's step on ``device``: ``(run, arguments)``.  ``run()``
+    runs it once (train = loss + backward + AdamW from a fresh state,
+    prefill = forward, decode = ``decode_step`` at position 0);
+    ``arguments`` is what it takes: the train state and batch, or the
+    parameters, the decode cache and the batch.  With ``mesh`` the
+    parameters are DTensors placed by the rules.  ``seq_batch`` replaces
+    ``SHAPES[shape]``'s sequence and global batch.  Off meta the weights
+    and the batch are drawn from ``seed``."""
+    seq, batch, kind = SHAPES[shape]
+    if seq_batch is not None:
+        seq, batch = seq_batch
+    rules = None if mesh is None else rules_for(cfg, mesh, flags)
+    model = build_model(cfg, flags, rules, device=device, seed=seed)
+    if mesh is not None:
+        model = distribute_model(model, mesh, rules)
+    specs = input_specs(cfg, shape, flags, seq_batch=seq_batch)
+    if torch.device(device).type != "meta":
+        specs = _draw_inputs(specs, cfg.vocab_size, device, seed)
+    if kind == "train":
+        opt_cfg = AdamWConfig(
+            moment_dtype="bfloat16" if cfg.param_count() > 100e9
+            else "float32")
+        state = init_state(model, opt_cfg)
+        step = make_train_step(model, opt_cfg)
+        return (lambda: step(state, specs)), (state, specs)
+    params = dict(model.named_parameters())
+    if kind == "prefill":
+        def run():
+            with torch.no_grad():
+                return model(specs)[0]
+        return run, (params, specs)
+    cache = model.init_cache(batch, seq)
+    b = dict(specs, pos=0)
+    return (lambda: model.decode_step(cache, b)), (params, cache, b)
+
+
+def memory_fields(arguments, out, stats) -> dict:
+    """The reference's ``memory_per_device`` from one counted step: the
+    arguments' and outputs' local bytes, ``peak_bytes`` = arguments + the
+    largest live allocation, ``temp_bytes`` = that allocation less what is
+    still live at the end (``launch.op_analysis``)."""
+    argument = _local_bytes(arguments)
+    return {"argument_bytes": argument, "output_bytes": _local_bytes(out),
+            "temp_bytes": max(0, stats.live_peak - stats.live_end),
+            "peak_bytes": argument + stats.live_peak}
+
+
 def lower_cell(arch: str, shape: str, multi_pod: bool, flags=None,
-               opt_overrides=None, mesh_shape=None):
+               opt_overrides=None, mesh_shape=None, cfg=None,
+               seq_batch=None):
     """Run one cell's step on meta; returns ``(OpStats, context)``.
     ``mesh_shape`` (``(shape, axis names)``) replaces the production mesh,
-    e.g. a small fake mesh for a test."""
-    cfg = get_config(arch)
-    seq, batch, kind = SHAPES[shape]
+    e.g. a small fake mesh for a test; ``cfg`` replaces the registry's
+    ``arch`` and ``seq_batch`` (``(seq, global batch)``) ``SHAPES``' entry,
+    e.g. a cut config at a size one card holds."""
+    if cfg is None:
+        cfg = get_config(arch)
     if mesh_shape is None:
         fake_world(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod)
@@ -96,32 +173,10 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, flags=None,
         flags = default_flags(cfg, shape, mesh)
     if opt_overrides:
         flags = dataclasses.replace(flags, **opt_overrides)
-    rules = rules_for(cfg, mesh, flags)
-    model = distribute_model(build_model(cfg, flags, rules, device="meta"),
-                             mesh, rules)
-    specs = input_specs(cfg, shape, flags)
-    if kind == "train":
-        opt_cfg = AdamWConfig(
-            moment_dtype="bfloat16" if cfg.param_count() > 100e9
-            else "float32")
-        state = init_state(model, opt_cfg)
-        step = make_train_step(model, opt_cfg)
-        args = (state, specs)
-        out, stats = count_ops(step, *args)
-    elif kind == "prefill":
-        args = (dict(model.named_parameters()), specs)
-        with torch.no_grad():
-            out, stats = count_ops(lambda b: model(b)[0], specs)
-    else:
-        cache = model.init_cache(batch, seq)
-        b = dict(specs, pos=0)
-        args = (dict(model.named_parameters()), cache, b)
-        out, stats = count_ops(model.decode_step, cache, b)
-    memory = {"argument_bytes": _local_bytes(args),
-              "output_bytes": _local_bytes(out),
-              "temp_bytes": None, "peak_bytes": None}
+    run, arguments = cell_step(cfg, shape, flags, mesh, seq_batch=seq_batch)
+    out, stats = count_ops(run)
     return stats, dict(cfg=cfg, mesh=mesh, n_dev=n_dev, flags=flags,
-                       memory=memory)
+                       memory=memory_fields(arguments, out, stats))
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
@@ -162,7 +217,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
             num_devices=ctx["n_dev"], cfg=ctx["cfg"], memory=ctx["memory"])
         rec = {"status": "ok", "step_s": round(time.time() - t0, 1),
                "flags": dataclasses.asdict(ctx["flags"]),
-               "peak_measured": False, **rep.row()}
+               "peak_counted_on": "meta", **rep.row()}
     except Exception as e:  # noqa: BLE001 — record the failure verbatim
         rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                "status": "error", "error": f"{type(e).__name__}: {e}",

@@ -60,14 +60,17 @@ def default_flags(cfg: ArchConfig, shape_name: str,
 
 
 def input_specs(cfg: ArchConfig, shape_name: str,
-                flags: Optional[RuntimeFlags] = None) -> dict:
+                flags: Optional[RuntimeFlags] = None, seq_batch=None) -> dict:
     """Meta batch for the step of this shape.
 
     train/prefill: token batch (prefill runs the same teacher-forced
     forward used for scoring; its FLOPs profile equals inference prefill).
     decode: one-token step against a seq_len KV cache; ``pos`` is a 0-d
-    int32 tensor."""
+    int32 tensor.  ``seq_batch`` (``(seq, global batch)``) replaces the
+    shape's own."""
     seq, batch, kind = SHAPES[shape_name]
+    if seq_batch is not None:
+        seq, batch = seq_batch
     if flags is None:
         flags = default_flags(cfg, shape_name)
     it = torch.int32

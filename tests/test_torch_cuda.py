@@ -1190,6 +1190,84 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
                                        rtol=2e-3, atol=2e-4)
 
 
+def test_memory_counter_matches_the_allocator(cuda):
+    """The dry run's live-storage counter (``launch.op_analysis``) on a
+    small bf16 train step on the card (remat 'full', the backward on
+    autograd's device thread) against the caching allocator: its peak
+    within 5% of ``max_memory_allocated``'s high-water above the
+    arguments, after a warm-up step that makes cuBLAS's workspaces."""
+    from repro_torch.launch.dryrun import cell_step
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.launch.specs import default_flags
+    cfg = get_config("stablelm-1.6b-smoke")
+    run, _ = cell_step(cfg, "train_4k", default_flags(cfg, "train_4k"),
+                       seq_batch=(512, 8), device=cuda)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, st = count_ops(run, device="cuda")
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    assert abs(st.live_peak - measured) <= 0.05 * measured, \
+        (st.live_peak, measured)
+
+
+def _scratch_case(name: str, contiguous: bool, dev):
+    """``(op, args)``: one op of the counter's scratch table on operands of
+    the plain attention's size (8 x 4 x 512 x 512 fp32) or the Mamba
+    conv's (4 x 2048 x 1027 bf16), contiguous or not."""
+    aten = torch.ops.aten
+    if name.startswith("convolution"):
+        D, S = 2048, 1024
+        x = torch.randn(4, S + 3, D, device=dev, dtype=torch.bfloat16)
+        x = x.transpose(1, 2).contiguous() if contiguous else x.transpose(1, 2)
+        w = torch.randn(D, 1, 4, device=dev, dtype=torch.bfloat16)
+        conv = (x, w, None, [1], [0], [1], False, [0], D)
+        if name == "convolution":
+            return aten.convolution.default, conv
+        go = torch.randn(4, D, S, device=dev, dtype=torch.bfloat16)
+        return aten.convolution_backward.default, (
+            go, *conv[:2], None, *conv[3:], [True, True, False])
+    c = torch.randn(8, 4, 512, 512, device=dev)
+    x = c if contiguous else torch.randn(8, 512, 4, 512,
+                                         device=dev).transpose(1, 2)
+    return {
+        "_softmax": (aten._softmax.default, (x, -1, False)),
+        "_log_softmax": (aten._log_softmax.default, (x, -1, False)),
+        "_softmax_backward_data": (aten._softmax_backward_data.default, (
+            x, torch.softmax(c, -1), -1, torch.float32)),
+        "_log_softmax_backward_data": (
+            aten._log_softmax_backward_data.default,
+            (x, torch.log_softmax(c, -1), -1, torch.float32)),
+        "logsumexp": (aten.logsumexp.default, (x, [-1], False)),
+    }[name]
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("name", [
+    "_softmax", "_log_softmax", "_softmax_backward_data",
+    "_log_softmax_backward_data", "logsumexp", "convolution",
+    "convolution_backward"])
+def test_kernel_scratch_matches_the_allocator(cuda, name, contiguous):
+    """The scratch the dry run's counter adds while an op runs
+    (``op_analysis._SCRATCH``) against the caching allocator's high-water
+    during the op above its start and its end, within 1% of the operand
+    (logsumexp's row maxima, 0.2%, are not modelled)."""
+    from repro_torch.launch.op_analysis import _SCRATCH, _dense
+    op, args = _scratch_case(name, contiguous, cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = op(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    scratch = torch.cuda.max_memory_allocated() - max(before, after)
+    del out
+    want = _SCRATCH[name](args)
+    assert abs(scratch - want) <= 0.01 * _dense(args[0]), (scratch, want)
+
+
 def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     """A state saved from the CPU restores onto the card bit for bit, bf16
     included."""

@@ -94,8 +94,12 @@ def test_smoke_cell_per_kind_is_ok(dry, cell):
     assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
     assert rec["collectives"]["ops"] > 0
     mem = rec["memory_per_device"]
-    assert mem["argument_bytes"] > 0 and mem["peak_bytes"] is None
-    assert not rec["peak_measured"]
+    assert mem["argument_bytes"] > 0
+    assert all(isinstance(mem[k], int) for k in (
+        "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes")), mem
+    assert mem["peak_bytes"] >= mem["argument_bytes"]
+    assert mem["temp_bytes"] >= 0
+    assert rec["peak_counted_on"] == "meta"
     arch, shape = cell.split("/")
     assert (tmp / "out" / f"{arch}__{shape}__2x2.json").exists()
 
