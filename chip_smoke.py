@@ -137,7 +137,14 @@ just before it and read just after):
   subprocess on a fake 1 x 1 mesh, then run on the card on a one-rank
   NCCL mesh with the same flags, the counter on the card's own tensors
   beside ``torch.cuda.max_memory_allocated``'s high-water above the
-  arguments (within 5%).  ``tools/nccl_ranks.py --lm`` runs (b)-(c) on
+  arguments (within 5%); (g) on the same one-rank NCCL mesh, size-1
+  tensor dims named on its size-1 axes (``Replicate()`` there):
+  granite-34b at its published widths cut to 2 layers (its one KV head on
+  'model'), bf16 prefill 1 x 2048 -> ``flash_attention`` on the local
+  heads (G = 48, each launch against its plain version) and 4 decode
+  ticks, the logits against ``mesh=None``'s by (b)'s rule, then
+  stablelm-1.6b whole, one bf16 step at global batch 1 x 2048 against the
+  same step with no mesh.  ``tools/nccl_ranks.py --lm`` runs (b)-(c) on
   a 2 x 2 NCCL mesh of 4 cards.
 
 Phase 1 reads the device, phase 2 builds the five kernels (one nvcc per
@@ -3206,7 +3213,8 @@ def phase_fe_card_vs_cpu(device: str = "cuda") -> dict:
 # degenerate, every code path on CUDA); tools/nccl_ranks.py --lm runs them
 # at 2 x 2 over NCCL, one rank per card.  (d) GPipe over 4 gloo ranks on
 # the card (activations through the host), (e) the dry run in a
-# subprocess.
+# subprocess, (f) its memory count and (g) size-1 dims on size-1 axes on
+# the one-rank NCCL mesh.
 GLOO_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
             "all_to_all_single")
 MESH_TRAIN_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = "stablelm-1.6b", 5, 1e-2
@@ -3405,11 +3413,12 @@ def _load(t, block):
     return t[block]
 
 
-def sharded_logits_check(local, off, want, rank: int) -> dict:
+def sharded_logits_check(local, off, want, what: str) -> dict:
     """This rank's block of the sharded bf16 logits against the same block
     of the one-rank fp32 logits (``want[1]``), beside the one-rank bf16
     logits' (``want[0]``) distance from them: relative RMS within
-    ``MESH_LOGITS_RMS_FACTOR`` times that yardstick, all finite."""
+    ``MESH_LOGITS_RMS_FACTOR`` times that yardstick, all finite
+    (``what`` names the check in a failure)."""
     block = tuple(slice(o, o + n) for o, n in zip(off, local.shape))
     bf16, fp32 = (_load(t, block) for t in want)
     sq = {"mesh": 0.0, "one_rank": 0.0, "ref": 0.0}
@@ -3418,7 +3427,7 @@ def sharded_logits_check(local, off, want, rank: int) -> dict:
         got = local[:, i:i + 512].float()
         ref = fp32[:, i:i + 512].cuda().float()
         one = bf16[:, i:i + 512].cuda().float()
-        assert bool(torch.isfinite(got).all()), f"rank {rank} logits"
+        assert bool(torch.isfinite(got).all()), f"{what} logits"
         sq["mesh"] += float((got - ref).square().sum())
         sq["one_rank"] += float((one - ref).square().sum())
         sq["ref"] += float(ref.square().sum())
@@ -3426,7 +3435,7 @@ def sharded_logits_check(local, off, want, rank: int) -> dict:
         del got, ref, one
     rms = {k: (sq[k] / sq["ref"]) ** 0.5 for k in ("mesh", "one_rank")}
     assert rms["mesh"] <= MESH_LOGITS_RMS_FACTOR * rms["one_rank"], (
-        f"phase 24 (b) rank {rank}: sharded bf16 logits at relative RMS "
+        f"{what}: sharded bf16 logits at relative RMS "
         f"{rms['mesh']:.4g} from fp32, one rank's at {rms['one_rank']:.4g}")
     return {"rel_rms": rms["mesh"], "one_rank_rel_rms": rms["one_rank"],
             "max_abs_diff_to_one_rank": max_abs}
@@ -3490,7 +3499,8 @@ def lm_mesh_rank(rank: int, world: int, shape: tuple, want_logits,
     del calls
     if want_logits is not None:
         out["logits"] = sharded_logits_check(local, (b0, s0, v0),
-                                             want_logits, rank)
+                                             want_logits,
+                                             f"phase 24 (b) rank {rank}")
     del local
     free_cuda()
     out["prefill"] = {"ms": prefill_ms, "launches": launched,
@@ -3903,41 +3913,235 @@ def memory_on_card(witness, mesh) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def phase_lm_memory(dry: dict, card: dict) -> dict:
+def phase_lm_memory(dry: dict, card: dict, mesh) -> dict:
     """Phase 24 (f): each witness's meta prediction (``peak_bytes -
     argument_bytes`` from (e)'s subprocess) and the counter on the card's
     own tensors against the allocator's high-water above the arguments,
-    on a one-rank NCCL mesh; each within ``MEM_RTOL`` of the measured."""
-    from repro_torch.launch.mesh import make_mesh
+    on ``mesh``, the one-rank NCCL mesh; each within ``MEM_RTOL`` of the
+    measured."""
     t0 = time.perf_counter()
     rows = []
-    with one_rank_nccl():
-        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
-        for w, meta in zip(MEM_WITNESSES, dry["witnesses"]):
-            got = memory_on_card(w, mesh)
-            mem = meta["memory"]
-            got["predicted"] = mem["peak_bytes"] - mem["argument_bytes"]
-            got["memory_meta"] = mem
-            got["meta_s"] = meta["seconds"]
-            got["witness"] = w
-            rows.append(got)
-            arch, layers, shape, (seq, batch) = w
-            log(f"phase 24 (f) {arch}{f' ({layers} layers)' if layers else ''}"
-                f" {shape} {batch} x {seq}: high-water above the arguments "
-                f"{got['measured'] / 1e9:.4f} GB (max_memory_allocated), "
-                f"counted on the card {got['counted_cuda'] / 1e9:.4f} GB, "
-                f"predicted on meta {got['predicted'] / 1e9:.4f} GB "
-                f"({got['predicted'] / got['measured'] - 1:+.2%}); "
-                f"arguments {mem['argument_bytes'] / 1e9:.3f} GB, peak "
-                f"{mem['peak_bytes'] / 1e9:.3f} GB; ops on "
-                f"{got['threads']} threads; step {got['warm_step_s']:.2f} s, "
-                f"{got['step_s']:.2f} s counted | {card['smi']}")
+    for w, meta in zip(MEM_WITNESSES, dry["witnesses"]):
+        got = memory_on_card(w, mesh)
+        mem = meta["memory"]
+        got["predicted"] = mem["peak_bytes"] - mem["argument_bytes"]
+        got["memory_meta"] = mem
+        got["meta_s"] = meta["seconds"]
+        got["witness"] = w
+        rows.append(got)
+        arch, layers, shape, (seq, batch) = w
+        log(f"phase 24 (f) {arch}{f' ({layers} layers)' if layers else ''}"
+            f" {shape} {batch} x {seq}: high-water above the arguments "
+            f"{got['measured'] / 1e9:.4f} GB (max_memory_allocated), "
+            f"counted on the card {got['counted_cuda'] / 1e9:.4f} GB, "
+            f"predicted on meta {got['predicted'] / 1e9:.4f} GB "
+            f"({got['predicted'] / got['measured'] - 1:+.2%}); "
+            f"arguments {mem['argument_bytes'] / 1e9:.3f} GB, peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB; ops on "
+            f"{got['threads']} threads; step {got['warm_step_s']:.2f} s, "
+            f"{got['step_s']:.2f} s counted | {card['smi']}")
     for r in rows:
         for k in ("predicted", "counted_cuda"):
             assert abs(r[k] - r["measured"]) <= MEM_RTOL * r["measured"], \
                 (k, r)
     out = {"rows": rows, "seconds": time.perf_counter() - t0}
     log(f"phase 24 (f) memory witnesses: {out['seconds']:.1f} s")
+    return out
+
+
+# (g): size-1 tensor dims named on the one-rank mesh's size-1 axes, which
+# parallel.placements makes Replicate(): Granite's one KV head on 'model'
+# and a global batch of 1 on 'data'
+SIZE1_ARCH, SIZE1_LAYERS, SIZE1_S, SIZE1_TICKS = "granite-34b", 2, 2048, 4
+SIZE1_TRAIN_ARCH, SIZE1_TRAIN_S = "stablelm-1.6b", 2048
+# the mesh step runs the no-mesh step's local operations; its loss is
+# summed by the vocab-parallel path (fp32) instead of logsumexp
+SIZE1_LOSS_RTOL = 1e-5
+
+
+def size1_config():
+    """granite-34b at its published widths (d_model 6144, 48 query heads
+    and ONE KV head of 128, GELU d_ff 24576, vocab 49152), depth cut from
+    88 layers to ``SIZE1_LAYERS``."""
+    return dataclasses.replace(get_config(SIZE1_ARCH),
+                               num_layers=SIZE1_LAYERS)
+
+
+def size1_serve(model, tokens, label: str) -> dict:
+    """``model``'s prefill of the first ``SIZE1_S`` tokens (its forward:
+    flash on the kernel route; warm, then timed with the flash calls
+    captured and the launches counted, then profiled under ``label``),
+    then that prompt filled into a cache by one ``decode_step`` and the
+    next ``SIZE1_TICKS`` tokens decoded one at a time.  Logits whole, on
+    the model's device."""
+    from repro_torch.parallel.local import whole
+    prompt = tokens[:, :SIZE1_S]
+    with torch.no_grad():
+        model({"tokens": prompt})
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with capture_lm_kernels() as calls:
+            t0 = time.perf_counter()
+            logits = model({"tokens": prompt})[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out = {"prefill": whole(logits), "prefill_ms": ms,
+               "launches": counts(), "calls": calls["flash_attention"],
+               "profile": profile_request(lambda: model({"tokens": prompt}),
+                                          label)}
+        cache = model.init_cache(1, SIZE1_S + SIZE1_TICKS)
+        model.decode_step(cache, {"tokens": prompt,
+                                  "pos": np.arange(SIZE1_S)})
+        out["ticks"] = []
+        for t in range(SIZE1_S, SIZE1_S + SIZE1_TICKS):
+            lg, cache = model.decode_step(
+                cache, {"tokens": tokens[:, t:t + 1], "pos": t})
+            out["ticks"].append(whole(lg))
+    return out
+
+
+def size1_train_steps(mesh, batch, device) -> dict:
+    """Two bf16 steps of ``SIZE1_TRAIN_ARCH`` whole on ``batch`` with the
+    reference's train flags (``use_pallas=False``), on ``mesh`` or with
+    none, from the weights of seed ``SEED``: the first cold, the second
+    warm; then a third under the profiler."""
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.launch.specs import default_flags
+    cfg = get_config(SIZE1_TRAIN_ARCH)
+    flags = dataclasses.replace(default_flags(cfg, "train_4k", mesh),
+                                use_pallas=False)
+    rules = None if mesh is None else rules_for(cfg, mesh, flags)
+    model = build_model(cfg, flags, rules, device=device, seed=SEED,
+                        mesh=mesh)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    state, step = init_state(model, opt), make_train_step(model, opt)
+    out = {"loss": [], "grad_norm": [], "step_ms": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(met["loss"]))
+        out["grad_norm"].append(float(met["grad_norm"]))
+    out["profile"] = profile_request(
+        lambda: step(state, batch), f"phase 24 (g) {SIZE1_TRAIN_ARCH} step "
+        + ("with no mesh" if mesh is None else "on the mesh"))
+    del state, model, step
+    free_cuda()
+    return out
+
+
+def phase_size1(mesh, card: dict, device: str = "cuda") -> dict:
+    """Phase 24 (g), on ``mesh`` (the one-rank NCCL mesh): Granite cut to
+    ``SIZE1_LAYERS`` layers in bf16, its one KV head named on 'model' of
+    size 1 (every KV weight ``Replicate()``), prefill and decode ticks
+    against the same model with ``mesh=None`` in bf16 and fp32 (phase 24
+    (b)'s rule: relative RMS from fp32 within ``MESH_LOGITS_RMS_FACTOR``
+    times the no-mesh bf16 logits'), each flash launch on the local heads
+    (G = 48) against its plain version (``check_flash_bf16``: the kernel
+    rounds P to bf16); then ``SIZE1_TRAIN_ARCH`` whole, two steps at
+    global batch 1 x ``SIZE1_TRAIN_S`` against the same steps with no
+    mesh (the first loss within ``SIZE1_LOSS_RTOL``, each loss and grad
+    norm within ``MESH_TRAIN_RTOL``)."""
+    from repro_torch.launch.rules import rules_for
+    t0 = time.perf_counter()
+    cfg = size1_config()
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, SIZE1_S + SIZE1_TICKS))).to(device)
+    want = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(cfg, RuntimeFlags(param_dtype=dtype,
+                                              compute_dtype=dtype),
+                            device=device, seed=SEED)
+        run = size1_serve(model, tokens,
+                          f"phase 24 (g) granite prefill {dtype} no mesh")
+        want[dtype] = {"prefill": run["prefill"].cpu(),
+                       "ticks": [t.cpu() for t in run["ticks"]],
+                       "prefill_ms": run["prefill_ms"],
+                       "profile": run["profile"]}
+        del model, run
+        free_cuda()
+    flags = RuntimeFlags(param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, flags, rules_for(cfg, mesh, flags),
+                        device=device, seed=SEED, mesh=mesh)
+    kv = {n: tuple(p.placements) for n, p in model.named_parameters()
+          if n.endswith((".wk", ".wv"))}
+    assert kv and all(p.is_replicate() for pl in kv.values() for p in pl), kv
+    got = size1_serve(model, tokens, "phase 24 (g) granite prefill mesh")
+    with torch.no_grad():
+        coll = mesh_collectives(
+            lambda: model({"tokens": tokens[:, :SIZE1_S]}))
+    del model
+    free_cuda()
+    assert got["launches"] == only(flash_attention=SIZE1_LAYERS), \
+        got["launches"]
+    for args, _, res in got["calls"]:
+        assert not any(_dtensor(a) for a in (*args, res))
+        assert args[0].shape[2] == cfg.num_heads and args[1].shape[2] == 1
+    calls = {"flash_attention": got["calls"]}
+    checked = check_flash_bf16(calls, "phase 24 (g) granite prefill")
+    times = lm_kernel_times(calls, plain=False, iters=3)
+    del calls
+    ref = [want[d] for d in ("bfloat16", "float32")]
+    logits = sharded_logits_check(
+        got["prefill"], (0, 0, 0), [w["prefill"] for w in ref],
+        "phase 24 (g) granite prefill")
+    ticks = [sharded_logits_check(t, (0, 0, 0), [w["ticks"][i] for w in ref],
+                                  f"phase 24 (g) granite tick {i}")
+             for i, t in enumerate(got["ticks"])]
+    serve = {"prefill_ms": got["prefill_ms"],
+             "no_mesh_prefill_ms": want["bfloat16"]["prefill_ms"],
+             "launches": got["launches"],
+             "errs": {"flash_attention": checked["max_abs_err"]},
+             "err_over_limit": checked["max_err_over_limit"],
+             "kernel_ms": {k: t["kernel_ms"] for k, t in times.items()},
+             "kernel_times": times,
+             "idle_share": {k: 1 - r["profile"]["device_busy_ms"]
+                            / r["profile"]["profiled_wall_ms"]
+                            for k, r in (("mesh", got),
+                                         ("no_mesh", want["bfloat16"]))},
+             "logits": logits, "ticks": ticks, "collectives": coll,
+             "kv_placements": {n: [repr(p) for p in pl]
+                               for n, pl in kv.items()}}
+    del got, want, ref
+    free_cuda()
+    log(f"phase 24 (g) {SIZE1_ARCH} {SIZE1_LAYERS} layers bf16, 1 x "
+        f"{SIZE1_S} on the 1 x 1 NCCL mesh (KV weights "
+        f"{sorted(set(map(str, serve['kv_placements'].values())))}): "
+        f"prefill {serve['prefill_ms']:.1f} ms (no mesh "
+        f"{serve['no_mesh_prefill_ms']:.1f} ms), launches "
+        f"{serve['launches']}, flash kernel ms {serve['kernel_ms']}, errs "
+        f"{serve['errs']}; logits {logits}; {SIZE1_TICKS} ticks "
+        f"{[round(t['max_abs_diff_to_one_rank'], 6) for t in ticks]} max "
+        f"abs from no mesh; collectives {coll['calls']} calls, bytes "
+        f"{coll['bytes']}; device idle share of a warm prefill "
+        f"{serve['idle_share']} | {card['smi']}")
+
+    cfg = get_config(SIZE1_TRAIN_ARCH)
+    batch = train_batch(cfg.vocab_size, 1, SIZE1_TRAIN_S)
+    train = {"no_mesh": size1_train_steps(None, batch, device),
+             "mesh": size1_train_steps(mesh, batch, device)}
+    a, b = train["mesh"], train["no_mesh"]
+    for t in (a, b):
+        t["idle_share"] = 1 - t["profile"]["device_busy_ms"] \
+            / t["profile"]["profiled_wall_ms"]
+    assert abs(a["loss"][0] - b["loss"][0]) <= \
+        SIZE1_LOSS_RTOL * abs(b["loss"][0]), train
+    for k in ("loss", "grad_norm"):
+        for x, y in zip(a[k], b[k]):
+            assert abs(x - y) <= MESH_TRAIN_RTOL * abs(y), (k, train)
+    log(f"phase 24 (g) {SIZE1_TRAIN_ARCH} whole, two bf16 steps at 1 x "
+        f"{SIZE1_TRAIN_S} on the 1 x 1 NCCL mesh: losses {a['loss']!r} "
+        f"(no mesh {b['loss']!r}), grad norms {a['grad_norm']!r} (no mesh "
+        f"{b['grad_norm']!r}), step ms cold, warm "
+        f"{[round(x, 1) for x in a['step_ms']]} (no mesh "
+        f"{[round(x, 1) for x in b['step_ms']]}); device idle share of a "
+        f"warm step {a['idle_share']:.3f} (no mesh {b['idle_share']:.3f}) "
+        f"| {card['smi']}")
+    out = {"serve": serve, "train": train,
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 24 (g) took {out['seconds']:.1f} s")
     return out
 
 
@@ -3991,6 +4195,13 @@ def lm_kernel_records(lm: dict, fe: dict, lm_mesh: dict) -> list:
               "max_abs_err": r["prefill"]["errs"][rec["name"]],
               "ms": r["prefill"]["kernel_ms"][rec["name"]]}
              for r in lm_mesh["mesh"]["ranks"]]
+    g = lm_mesh["size1"]["serve"]
+    t = g["kernel_times"]["flash_attention"]
+    recs[0]["paths"]["size1_granite_prefill_1x1_nccl"] = {
+        "launches": g["launches"]["flash_attention"],
+        "max_abs_err": g["errs"]["flash_attention"],
+        "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
     return recs
 
 
@@ -4066,7 +4277,11 @@ def main() -> int:
     lm_mesh = {"probe": probe, "mesh": phase_lm_mesh(probe),
                "pipeline": phase_pipeline(), "dryrun": phase_lm_dryrun()}
     free_cuda()
-    lm_mesh["memory"] = phase_lm_memory(lm_mesh["dryrun"], card)
+    from repro_torch.launch.mesh import make_mesh
+    with one_rank_nccl():
+        mesh11 = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        lm_mesh["memory"] = phase_lm_memory(lm_mesh["dryrun"], card, mesh11)
+        lm_mesh["size1"] = phase_size1(mesh11, card)
     lm_mesh["seconds"] = time.perf_counter() - t0
     log(f"phase 24 (LM sharding, GPipe, LM dry run) took "
         f"{lm_mesh['seconds']:.1f} s")

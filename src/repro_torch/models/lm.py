@@ -49,7 +49,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..parallel.local import MeshPlacer, global_offset, \
     implicit_replication, is_dtensor, map_local
-from ..parallel.sharding import logical_to_spec, placements, \
+from ..parallel.sharding import check_even, logical_to_spec, placements, \
     shard_constraint
 from .blocks import Layer, LayerSpec, StackDef, _norm_scale, stack_apply, \
     stack_init_cache
@@ -155,11 +155,12 @@ class LMModel(nn.Module):
         mesh = self.mesh
         if mesh is None or t is None:
             return t
+        pl = placements(mesh, logical_to_spec(self.rules, logical))
+        check_even(t.shape, mesh, pl, logical)
         if is_dtensor(t):
             return shard_constraint(t, self.rules, *logical)
         return distribute_tensor(
-            torch.as_tensor(t, device=self.device), mesh,
-            placements(mesh, logical_to_spec(self.rules, logical)))
+            torch.as_tensor(t, device=self.device), mesh, pl)
 
     def _sharded(self):
         """DTensor's implicit replication of plain tensors (positions,

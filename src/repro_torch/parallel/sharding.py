@@ -12,10 +12,10 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
 'model', 'stage').  :func:`logical_to_spec` returns the reference's
 ``PartitionSpec`` entries as a tuple (``None``, an axis name, or a tuple
 of axis names); :func:`placements` turns such a spec into the DTensor
-placements on a mesh: ``Shard(d)`` on every mesh dim that tensor dim ``d``
-names, ``Replicate()`` on the others.  A ``('pod', 'data')`` entry shards
-one tensor dim over two mesh dims, 'pod' outermost, which is the
-reference's device order.
+placements on a mesh: ``Shard(d)`` on every mesh dim of size > 1 that
+tensor dim ``d`` names, ``Replicate()`` on the others.  A ``('pod',
+'data')`` entry shards one tensor dim over two mesh dims, 'pod'
+outermost, which is the reference's device order.
 
 Layouts provided:
   * TP        — heads / mlp / vocab / experts over 'model'
@@ -31,7 +31,7 @@ from typing import Optional, Sequence
 
 __all__ = [
     "ShardingRules", "LOGICAL_RULES_BASE", "logical_to_spec",
-    "shard_constraint", "named_sharding", "placements",
+    "shard_constraint", "named_sharding", "placements", "check_even",
 ]
 
 # logical name -> preferred mesh axes (first existing axis wins; tuples mean
@@ -128,16 +128,44 @@ def logical_to_spec(rules: ShardingRules,
 def placements(mesh, spec: Sequence) -> tuple:
     """DTensor placements of ``spec`` (a :func:`logical_to_spec` tuple) on
     ``mesh``: ``Shard(d)`` on each mesh dim that entry ``d`` names,
-    ``Replicate()`` on the rest."""
+    ``Replicate()`` on the rest.  A mesh dim of size 1 is ``Replicate()``
+    whatever the spec names: its one rank holds the whole dim either way,
+    and DTensor refuses to view away a size-1 tensor dim (global batch 1,
+    Granite's one KV head) that is ``Shard`` there, where the reference's
+    ``PartitionSpec`` is only a layout."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
+    sizes = tuple(mesh.mesh.shape)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         for axis in (entry if isinstance(entry, tuple) else (entry,)):
-            out[names.index(axis)] = Shard(d)
+            i = names.index(axis)
+            if sizes[i] > 1:
+                out[i] = Shard(d)
     return tuple(out)
+
+
+def check_even(shape, mesh, placements_, logical=()) -> None:
+    """Raise ``ValueError`` where ``placements_`` split a dim of ``shape``
+    unevenly: a dim the sizes of the mesh dims that shard it do not
+    divide (global batch 1 over 'data' of 2).  The reference refuses such
+    an argument (its jit's ``in_shardings``), and ``local_map`` would give
+    each rank a global shape of its own local rows times the split."""
+    from torch.distributed.tensor import Shard
+    names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape)
+    for d in range(len(shape)):
+        on = [i for i, p in enumerate(placements_) if p == Shard(d)]
+        n = 1
+        for i in on:
+            n *= sizes[i]
+        if shape[d] % n:
+            name = logical[d] if d < len(logical) else None
+            raise ValueError(
+                f"dim {d} ({name!r}) of size {shape[d]} does not divide "
+                f"over mesh axes {tuple(names[i] for i in on)} of "
+                f"{n} ranks: the reference refuses an uneven split too")
 
 
 def shard_constraint(x, rules: Optional[ShardingRules],

@@ -378,3 +378,77 @@ def lm_mesh_paths(rank, world, serve_cases, train_case, ckpt_dir):
                         == sh["opt"][k][n]
                         for k in ("m", "v") for n in st["opt"][k])}
     return out
+
+
+def lm_size1_paths(rank, world, serve_cases, train_cases):
+    """The LM stack on meshes with a size-1 axis, or a size-1 dim split
+    unevenly, of the default group, fp32, weights from ``build_model(...,
+    seed=0)``.  ``serve_cases``: ``{name: (arch, mesh shape, batch, n)}``
+    -> prefill logits (kernel route), ``n`` decode steps' logits and every
+    parameter's placements; ``train_cases``: ``{name: (arch, mesh shape,
+    batch, zero1)}`` -> two train steps' metrics, the gathered parameters
+    and moments, and whether every state leaf is placed as
+    ``make_state_shardings`` says; or ``{'refused': message}`` where the
+    step raised ``ValueError`` (a batch the data axes do not divide)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models.lm import distribute_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.train_step import make_state_shardings
+    torch.set_num_threads(1)
+    axes = ("data", "model")
+
+    def model_on(arch, shape, **kw):
+        cfg = _lm_batch(arch, {})[0]
+        mesh = make_mesh(shape, axes)
+        flags = RuntimeFlags(param_dtype="float32", compute_dtype="float32",
+                             **kw)
+        rules = rules_for(cfg, mesh, flags)
+        return distribute_model(build_model(cfg, flags, rules, device="cpu",
+                                            seed=0), mesh, rules), mesh
+
+    out = {"serve": {}, "train": {}}
+    for name, (arch, shape, case, n) in serve_cases.items():
+        _, batch = _lm_batch(arch, case)
+        m, _ = model_on(arch, shape)
+        rec = {"placements": {k: tuple(repr(p) for p in t.placements)
+                              for k, t in m.named_parameters()}}
+        with torch.no_grad():
+            rec["prefill"] = m(batch)[0].full_tensor().numpy()
+            cache = m.init_cache(batch["tokens"].shape[0], n)
+            rec["decode"] = []
+            for t in range(n):
+                lg, cache = m.decode_step(cache, {
+                    "tokens": batch["tokens"][:, t:t + 1], "pos": t})
+                rec["decode"].append(lg.full_tensor().numpy())
+        out["serve"][name] = rec
+
+    opt = AdamWConfig(warmup_steps=1)
+    for name, (arch, shape, case, zero1) in train_cases.items():
+        _, batch = _lm_batch(arch, case)
+        m, mesh = model_on(arch, shape, use_pallas=False, zero1=zero1)
+        state = init_state(m, opt)
+        step = make_train_step(m, opt)
+        mets = []
+        try:
+            for _ in range(2):
+                state, met = step(state, batch)
+                mets.append({k: float(v) for k, v in met.items()})
+        except ValueError as e:         # an uneven split, refused
+            out["train"][name] = {"refused": str(e)}
+            continue
+        want = make_state_shardings(m, mesh, m.rules, zero1=zero1)
+        out["train"][name] = {
+            "metrics": mets,
+            "params": {k: p.full_tensor().detach().numpy()
+                       for k, p in state["params"].items()},
+            "opt": {k: {n: t.full_tensor().numpy()
+                        for n, t in state["opt"][k].items()}
+                    for k in ("m", "v")},
+            "placements_ok": all(
+                tuple(p.placements) == want["params"][n]
+                for n, p in state["params"].items()) and all(
+                tuple(t.placements) == want["opt"][k][n]
+                for k in ("m", "v") for n, t in state["opt"][k].items())}
+    return out
