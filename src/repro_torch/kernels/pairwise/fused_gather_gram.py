@@ -25,6 +25,10 @@ Precision: the reference multiplies fp32 with fp32 accumulation and is held
 at 1e-5.  The kernels use plain fp32 FMA, never TF32, and the plain versions
 run ``torch.bmm`` with ``torch.backends.cuda.matmul.allow_tf32 = False``
 so that both stay within that bound on the card.
+
+Each square launch (or plain call on the CPU) runs inside an obs ``gram``
+span with its ``width`` and ``R``, device-timed on the card
+(``repro_torch.obs.trace``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import contextlib
 import ctypes
 
 import torch
+
+from repro_torch.obs import span as _obs_span
 
 from .. import _build
 
@@ -251,14 +257,18 @@ def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"want x (m, d), idx/mask (R, L); got "
                          f"{tuple(x.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(mask.shape)}")
-    if _device_of(x) == "cpu":
-        return fused_gather_gram_ref(x, idx, mask)
-    (mask,) = _cuda_operands([x], [(idx, mask)])
     R, L = idx.shape
+    if _device_of(x) == "cpu":
+        with _obs_span("gram", width=L, R=R):
+            return fused_gather_gram_ref(x, idx, mask)
+    (mask,) = _cuda_operands([x], [(idx, mask)])
     out = torch.empty((R, L, L), dtype=torch.float32, device=x.device)
     if R == 0:
         return out
-    with torch.cuda.device(x.device):
+    # the span holds the launch alone, so that its device interval is the
+    # kernel's and the host's checks before it count as the caller's
+    with _obs_span("gram", device=x.device, width=L, R=R), \
+            torch.cuda.device(x.device):
         _build.launch(
             "fused_gather_gram", _SQUARE_ARGS,
             (x.data_ptr(), int(x.dtype == torch.bfloat16), idx.data_ptr(),

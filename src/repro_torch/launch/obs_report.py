@@ -6,8 +6,10 @@ report — or one JSON document with ``--json``:
 * metrics registry snapshot (counters / gauges / histogram summaries),
 * comm-ledger reconciliation per (executor, workload) plus any anomalies,
 * structured event counts and the most recent events,
-* the span ring, exportable as Chrome trace JSON (``--trace out.json``,
-  loadable in Perfetto / chrome://tracing).
+* the span totals per name (count, host and self host seconds) and the
+  span ring, exportable as Chrome trace JSON (``--trace out.json``,
+  loadable in Perfetto / chrome://tracing; a device-timed span carries its
+  ``device_ms``).
 
 ``--demo`` first runs a small :class:`repro_torch.serve.PairwiseService`
 workload (pairs + x2y on the fused executor) so the report has something
@@ -44,7 +46,7 @@ def gather(events_tail: int = 10) -> dict:
             "counts": EVENTS.counts(),
             "tail": EVENTS.events(last=events_tail),
         },
-        "trace": {"spans": len(TRACER.spans())},
+        "trace": {"spans": len(TRACER.spans()), "totals": TRACER.totals()},
     }
 
 
@@ -101,6 +103,10 @@ def render(doc: dict) -> str:
 
     lines.append(f"\n-- trace --\n  spans buffered: {doc['trace']['spans']}"
                  "  (export with --trace out.json)")
+    for name, t in sorted(doc["trace"]["totals"].items(),
+                          key=lambda kv: -kv[1]["host_s"]):
+        lines.append(f"  {name}: n={t['count']} host={t['host_s']:.4g}s "
+                     f"self={t['self_s']:.4g}s")
     return "\n".join(lines)
 
 

@@ -254,18 +254,19 @@ def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
     if cached is not None and cached[0] == m:
         return cached[1]
     _check_srcmap_size(plan, lambda b: b.R * b.width * b.width)
-    srcmap = np.zeros((m, m), np.int32)
-    base = 1
-    for b in plan.buckets:
-        Rb, Lb = b.idx.shape
-        rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lb, Lb))
-        cols = np.broadcast_to(b.idx[:, None, :], (Rb, Lb, Lb))
-        valid = b.mask[:, :, None] & b.mask[:, None, :]
-        pos = np.arange(base, base + Rb * Lb * Lb,
-                        dtype=np.int64).reshape(Rb, Lb, Lb)
-        srcmap[rows[valid], cols[valid]] = pos[valid]
-        base += Rb * Lb * Lb
-    np.fill_diagonal(srcmap, 0)
+    with _obs_span("plan.srcmap", m=m):
+        srcmap = np.zeros((m, m), np.int32)
+        base = 1
+        for b in plan.buckets:
+            Rb, Lb = b.idx.shape
+            rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lb, Lb))
+            cols = np.broadcast_to(b.idx[:, None, :], (Rb, Lb, Lb))
+            valid = b.mask[:, :, None] & b.mask[:, None, :]
+            pos = np.arange(base, base + Rb * Lb * Lb,
+                            dtype=np.int64).reshape(Rb, Lb, Lb)
+            srcmap[rows[valid], cols[valid]] = pos[valid]
+            base += Rb * Lb * Lb
+        np.fill_diagonal(srcmap, 0)
     object.__setattr__(plan, "_pair_srcmap", (m, srcmap))
     return srcmap
 
@@ -273,9 +274,10 @@ def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
 def _assemble_from_srcmap(per_bucket, srcmap: torch.Tensor):
     """Fused assembly: gather the (m, m) matrix from the concatenated
     bucket blocks through the inverse-shuffle map (int64, on device)."""
-    vals = [torch.zeros(1, dtype=torch.float32, device=srcmap.device)]
-    vals += [g.reshape(-1) for _, g in per_bucket]
-    return torch.cat(vals)[srcmap]
+    with _obs_span("assemble", device=srcmap.device):
+        vals = [torch.zeros(1, dtype=torch.float32, device=srcmap.device)]
+        vals += [g.reshape(-1) for _, g in per_bucket]
+        return torch.cat(vals)[srcmap]
 
 
 def _run_and_assemble(x, plan, fn, m, mesh, executor,
@@ -317,19 +319,20 @@ def pairwise_similarity(
     (sims (m, m) with zero diagonal, plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    pad = _mesh_pad(mesh)
-    with _obs_span("plan", workload="pairs", m=m):
-        if schema is None:
-            w = (np.full(m, 1.0) if weights is None
-                 else np.asarray(weights, float))
-            schema = plan_a2a(w, q)
-        plan = _plan_for(schema, pad_reducers_to=pad,
-                         pad_slots_to=pad_slots_to)
-    fn = _block_fn(metric, use_kernel)
-    with _obs_span("execute", workload="pairs",
-                   reducers=plan.num_reducers):
-        sims = _run_and_assemble(x, plan, fn, m, mesh, executor,
-                                 use_kernel=use_kernel)
+    with _obs_span("similarity", device=x.device, workload="pairs", m=m):
+        pad = _mesh_pad(mesh)
+        with _obs_span("plan", workload="pairs", m=m):
+            if schema is None:
+                w = (np.full(m, 1.0) if weights is None
+                     else np.asarray(weights, float))
+                schema = plan_a2a(w, q)
+            plan = _plan_for(schema, pad_reducers_to=pad,
+                             pad_slots_to=pad_slots_to)
+        fn = _block_fn(metric, use_kernel)
+        with _obs_span("execute", workload="pairs",
+                       reducers=plan.num_reducers):
+            sims = _run_and_assemble(x, plan, fn, m, mesh, executor,
+                                     use_kernel=use_kernel)
     return sims, plan, schema
 
 
@@ -408,25 +411,28 @@ def some_pairs_similarity(
     :func:`pairwise_similarity`.  Returns (sims (m, m), plan, schema)."""
     x = as_table(x, device)
     m = x.shape[0]
-    pad = _mesh_pad(mesh)
-    with _obs_span("plan", workload="some_pairs", m=m):
-        if schema is None:
-            w = (np.full(m, 1.0) if weights is None
-                 else np.asarray(weights, float))
-            schema = plan_some_pairs(w, q, pairs)
-        plan = _plan_for(schema, pad_reducers_to=pad,
-                         pad_slots_to=pad_slots_to)
-    fn = _block_fn(metric, use_kernel)
-    with _obs_span("execute", workload="some_pairs",
-                   reducers=plan.num_reducers):
-        sims = _run_and_assemble(x, plan, fn, m, mesh, executor,
-                                 use_kernel=use_kernel)
-    p = torch.as_tensor(np.asarray(list(pairs), dtype=np.int64)
-                        .reshape(-1, 2), device=sims.device)
-    want = torch.zeros((m, m), dtype=torch.bool, device=sims.device)
-    want[p[:, 0], p[:, 1]] = True
-    want[p[:, 1], p[:, 0]] = True
-    return torch.where(want, sims, 0.0), plan, schema
+    with _obs_span("similarity", device=x.device, workload="some_pairs",
+                   m=m):
+        pad = _mesh_pad(mesh)
+        with _obs_span("plan", workload="some_pairs", m=m):
+            if schema is None:
+                w = (np.full(m, 1.0) if weights is None
+                     else np.asarray(weights, float))
+                schema = plan_some_pairs(w, q, pairs)
+            plan = _plan_for(schema, pad_reducers_to=pad,
+                             pad_slots_to=pad_slots_to)
+        fn = _block_fn(metric, use_kernel)
+        with _obs_span("execute", workload="some_pairs",
+                       reducers=plan.num_reducers):
+            sims = _run_and_assemble(x, plan, fn, m, mesh, executor,
+                                     use_kernel=use_kernel)
+        p = torch.as_tensor(np.asarray(list(pairs), dtype=np.int64)
+                            .reshape(-1, 2), device=sims.device)
+        want = torch.zeros((m, m), dtype=torch.bool, device=sims.device)
+        want[p[:, 0], p[:, 1]] = True
+        want[p[:, 1], p[:, 0]] = True
+        sims = torch.where(want, sims, 0.0)
+    return sims, plan, schema
 
 
 def x2y_similarity(
@@ -460,19 +466,24 @@ def x2y_similarity(
     plans.  Returns (sims (mx, my), plan, schema)."""
     x, y = _as_tables((x, y), device)
     mx, my = x.shape[0], y.shape[0]
-    pad = _mesh_pad(mesh)
-    with _obs_span("plan", workload="x2y", mx=mx, my=my):
-        if schema is None:
-            wx_ = np.full(mx, 1.0) if wx is None else np.asarray(wx, float)
-            wy_ = np.full(my, 1.0) if wy is None else np.asarray(wy, float)
-            schema = plan_x2y(wx_, wy_, q)
-        plan = _x2y_plan_for(schema, mx, pad_reducers_to=pad,
-                             pad_slots_to=pad_slots_to)
-    fn = _block_fn_x2y(metric)
-    with _obs_span("execute", workload="x2y", reducers=plan.num_reducers):
-        sims = get_executor(executor).run_x2y(
-            (x, y), plan, fn, (mx, my), mesh=mesh, use_kernel=use_kernel,
-            device=x.device)
+    with _obs_span("similarity", device=x.device, workload="x2y", mx=mx,
+                   my=my):
+        pad = _mesh_pad(mesh)
+        with _obs_span("plan", workload="x2y", mx=mx, my=my):
+            if schema is None:
+                wx_ = (np.full(mx, 1.0) if wx is None
+                       else np.asarray(wx, float))
+                wy_ = (np.full(my, 1.0) if wy is None
+                       else np.asarray(wy, float))
+                schema = plan_x2y(wx_, wy_, q)
+            plan = _x2y_plan_for(schema, mx, pad_reducers_to=pad,
+                                 pad_slots_to=pad_slots_to)
+        fn = _block_fn_x2y(metric)
+        with _obs_span("execute", workload="x2y",
+                       reducers=plan.num_reducers):
+            sims = get_executor(executor).run_x2y(
+                (x, y), plan, fn, (mx, my), mesh=mesh,
+                use_kernel=use_kernel, device=x.device)
     return sims, plan, schema
 
 

@@ -69,6 +69,7 @@ from repro_torch.core.schema import MappingSchema
 from repro_torch.kernels.pairwise.fused_gather_gram import gather_rows
 from repro_torch.obs import EVENTS as _OBS_EVENTS
 from repro_torch.obs import REGISTRY as _OBS_REGISTRY
+from repro_torch.obs import span as _obs_span
 
 __all__ = [
     "ReducerBucket",
@@ -246,24 +247,27 @@ def build_plan(schema: MappingSchema, *, pad_reducers_to: int = 1,
     ``pad_slots_to`` rounds slot counts (kernel tile alignment);
     ``max_buckets`` bounds the number of capacity buckets (one kernel
     launch each on the fused path)."""
-    expanded = schema.expand()
-    R0 = len(expanded)
-    L0 = max((len(ids) for ids in expanded), default=1)
-    L = -(-L0 // pad_slots_to) * pad_slots_to
-    R = -(-max(R0, 1) // pad_reducers_to) * pad_reducers_to
-    idx = np.zeros((R, L), dtype=np.int32)
-    mask = np.zeros((R, L), dtype=bool)
-    for r, ids in enumerate(expanded):
-        idx[r, : len(ids)] = ids
-        mask[r, : len(ids)] = True
-    buckets = _build_buckets(expanded, pad_slots_to=pad_slots_to,
-                             pad_reducers_to=pad_reducers_to,
-                             max_buckets=max_buckets)
-    return ReducerPlan(idx=idx, mask=mask, num_reducers=R0,
-                       comm_cost=schema.communication_cost(), max_inputs=L0,
-                       algorithm=schema.algorithm,
-                       lower_bound=schema.lower_bound,
-                       buckets=buckets)
+    with _obs_span("plan.build") as sp:
+        expanded = schema.expand()
+        R0 = len(expanded)
+        L0 = max((len(ids) for ids in expanded), default=1)
+        L = -(-L0 // pad_slots_to) * pad_slots_to
+        R = -(-max(R0, 1) // pad_reducers_to) * pad_reducers_to
+        idx = np.zeros((R, L), dtype=np.int32)
+        mask = np.zeros((R, L), dtype=bool)
+        for r, ids in enumerate(expanded):
+            idx[r, : len(ids)] = ids
+            mask[r, : len(ids)] = True
+        buckets = _build_buckets(expanded, pad_slots_to=pad_slots_to,
+                                 pad_reducers_to=pad_reducers_to,
+                                 max_buckets=max_buckets)
+        if sp is not None:
+            sp.attrs.update(reducers=R0, buckets=len(buckets))
+        return ReducerPlan(idx=idx, mask=mask, num_reducers=R0,
+                           comm_cost=schema.communication_cost(),
+                           max_inputs=L0, algorithm=schema.algorithm,
+                           lower_bound=schema.lower_bound,
+                           buckets=buckets)
 
 
 # ---------------------------------------------------------------------------
@@ -800,7 +804,11 @@ def uploaded(kind: str, plan, table: torch.Tensor, factory,
     tables = (table,) if ytable is None else (table, ytable)
     _check_indices(plan, *(t.shape[0] for t in tables))
     key = (kind, _plan_token(plan), str(table.device))
-    value = _cache_get(key, lambda: factory(table.device))
+
+    def miss():
+        with _obs_span("upload", kind=kind):
+            return factory(table.device)
+    value = _cache_get(key, miss)
     _record_shape(key, tables)
     return value
 

@@ -73,6 +73,7 @@ from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
 from repro_torch.obs import _config as _obs_config
+from repro_torch.obs import span as _obs_span
 
 from .engine import (
     ReducerPlan,
@@ -442,19 +443,21 @@ def _finish_fused_blocks(g, mask, metric: str):
 
     Mirrors ``allpairs.block_similarity`` exactly: norms are the Gram
     diagonal (masked rows were zeroed at gather time, so their norms are 0),
-    invalid pairs -> 0.
+    invalid pairs -> 0.  Runs inside an obs ``finish`` span with the
+    blocks' ``width``, device-timed on the card.
     """
-    if metric != "dot":
-        n2 = torch.diagonal(g, dim1=1, dim2=2)            # (Rb, Lb)
-        if metric == "l2":
-            g = n2[:, :, None] + n2[:, None, :] - 2.0 * g
-        elif metric == "cosine":
-            nrm = torch.sqrt(n2 + 1e-9)
-            g = g / (nrm[:, :, None] * nrm[:, None, :])
-        else:
-            raise ValueError(metric)
-    valid = mask[:, :, None] & mask[:, None, :]
-    return torch.where(valid, g, 0.0)
+    with _obs_span("finish", device=g.device, width=g.shape[1]):
+        if metric != "dot":
+            n2 = torch.diagonal(g, dim1=1, dim2=2)            # (Rb, Lb)
+            if metric == "l2":
+                g = n2[:, :, None] + n2[:, None, :] - 2.0 * g
+            elif metric == "cosine":
+                nrm = torch.sqrt(n2 + 1e-9)
+                g = g / (nrm[:, :, None] * nrm[:, None, :])
+            else:
+                raise ValueError(metric)
+        valid = mask[:, :, None] & mask[:, None, :]
+        return torch.where(valid, g, 0.0)
 
 
 def _take_masked(v, idx, mask):
