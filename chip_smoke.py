@@ -1481,20 +1481,26 @@ M_CODED = 1024
 GROUP_TIMEOUT_S = 120.0             # every collective, and each spawn
 
 
+def square_plain(x, idx, mask, metric=None, out=None):
+    """The square kernel's plain version with its metric finish in torch
+    (``out`` is where the kernel wrote; the plain version allocates)."""
+    g = fgg.fused_gather_gram_ref(x, idx, mask)
+    return g if metric is None else fgg.finish_fused_blocks(g, mask, metric)
+
+
 class KernelSpy:
     """Records each launch of the three Gram kernels the executors make
     (its operands and output) to hold it against its plain version
     afterwards, which launches nothing."""
 
     # kernel -> (module the executors call its wrapper through, wrapper's
-    # name there, plain version's name in the kernel's module)
+    # name there, plain version)
     TARGETS = {
-        "fused_gather_gram": (port_ex, "fused_gather_gram",
-                              (fgg, "fused_gather_gram_ref")),
+        "fused_gather_gram": (port_ex, "fused_gather_gram", square_plain),
         "fused_gather_gram_rect": (port_ex, "fused_gather_gram_rect",
-                                   (fgg, "fused_gather_gram_rect_ref")),
+                                   fgg.fused_gather_gram_rect_ref),
         "pairwise_gram": (pg, "pairwise_gram_batched",
-                          (pg, "pairwise_gram_ref"))}
+                          pg.pairwise_gram_ref)}
 
     def __enter__(self):
         self.calls = []
@@ -1520,8 +1526,7 @@ class KernelSpy:
         torch.cuda.synchronize()
         out = {}
         for name, args, got in self.calls:
-            mod, plain = self.TARGETS[name][2]
-            want = getattr(mod, plain)(*args)
+            want = self.TARGETS[name][2](*args)
             torch.testing.assert_close(got, want, **FP32,
                                        msg=lambda m: f"{what} {name}: {m}")
             rec = out.setdefault(name, {"launches": 0, "max_abs_err": 0.0})

@@ -43,6 +43,21 @@
 //     at stride RS.  Every tile position is multiplied and every product
 //     inside (M, N) stored, so a position with no row of A or B (a masked
 //     slot, a slot past M or N, a reducer past R) is staged as zeros.
+//
+// An epilogue policy `Epi` says what an item's last chunk stores:
+//   static constexpr bool kDiag: false (Identity, the default) stores the
+//     products; true finishes them first, from the block's own diagonal,
+//     and then needs a one-tile self-Gram (self, M == N <= TM == TN,
+//     RM == RN; the caller's promise), so that reducer r's diagonal lies in
+//     the item.  After a barrier the threads put their products (and
+//     mirrors) into the stage they have just multiplied, as G padded
+//     T x T tiles, and the ones that hold the diagonal put each slot i's
+//     epi.norm(g_ii), or -1 where epi.live(r, i, M) is false, beside them;
+//     after a second barrier every thread of the block (the spare ones
+//     that only stage rows included) finishes entries in the order of the
+//     output, so that the group's blocks, one contiguous range, are
+//     stored coalesced: epi.finish(g_ij, norm_i, norm_j) where both slots
+//     are live, else +0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +81,11 @@ struct Grid {
   int n_tm, n_tn;       // tiles along i and j
   int pairs;            // tile pairs per reducer group
   long long items;      // reducer groups x tile pairs
+};
+
+// The epilogue that stores the products as they are.
+struct Identity {
+  static constexpr bool kDiag = false;
 };
 
 // Reducers per block for tiles TM x TN.
@@ -125,23 +145,33 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-// Shared memory of one launch: the ring, and the row tables of a `kTable`
-// source.
-template <typename Src, int TM, int TN>
+// Shared memory of a `kDiag` epilogue, after the row tables: each staged
+// slot's norm.
+template <typename Epi, int TM>
+__host__ __device__ constexpr int diag_bytes() {
+  return Epi::kDiag ? group<TM, TM>() * TM * sizeof(float) : 0;
+}
+
+// Shared memory of one launch: the ring, the row tables of a `kTable`
+// source and the diagonal of a `kDiag` epilogue.
+template <typename Src, int TM, int TN, typename Epi = Identity>
 int smem_bytes(const Grid& g) {
   constexpr int G = group<TM, TN>();
   const bool one_side = g.self && g.n_tm == 1;
   return STAGES * ((one_side ? G * TM : G * TM + G * TN) * RS +
                    Src::template table_ints<TM, TN>() *
-                       static_cast<int>(sizeof(int)));
+                       static_cast<int>(sizeof(int))) +
+         diag_bytes<Epi, TM>();
 }
 
 // The body of a kernel: block = G * (TM/RM) * (TN/RN) threads, grid-stride
-// over g.items, smem_bytes<Src, TM, TN>(g) of dynamic shared memory at
+// over g.items, smem_bytes<Src, TM, TN, Epi>(g) of dynamic shared memory at
 // `smem`.
-template <typename Tin, int TM, int TN, int RM, int RN, typename Src>
+template <typename Tin, int TM, int TN, int RM, int RN, typename Src,
+          typename Epi = Identity>
 __device__ __forceinline__ void run(const Grid& a, const Src& src,
-                                    unsigned char* smem) {
+                                    unsigned char* smem,
+                                    const Epi& epi = Epi()) {
   constexpr int G = group<TM, TN>();
   constexpr int TI = TM / RM, TJ = TN / RN;      // thread grid of one tile
   constexpr int VE = 16 / sizeof(Tin);
@@ -239,8 +269,56 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
     }
 
     if (s % n_chunks == n_chunks - 1) {     // the item's last chunk
-      const long long r = (item / a.pairs) * G + g;
-      if (active && r < a.R) {
+      const long long r0 = (item / a.pairs) * G, r = r0 + g;
+      if constexpr (Epi::kDiag) {
+        static_assert(TM == TN && RM == RN, "a diagonal needs square tiles");
+        static_assert((TM + 1) * sizeof(float) <= RS,
+                      "a stage holds the group's padded tiles");
+        constexpr int T = TM, TP = TM + 1;    // tile row stride, padded
+        // the group's products go through this step's stage, which every
+        // warp is done reading after the barrier, as G padded T x T tiles
+        float* tile = reinterpret_cast<float*>(smem + (s % STAGES) *
+                                               stage_bytes);
+        // a slot's norm, or -1 where it is not live: a norm is never
+        // negative (NaN for a slot outside the table, which is live)
+        float* norm = reinterpret_cast<float*>(smem + STAGES * stage_bytes +
+                                               STAGES * TABLE * sizeof(int));
+        __syncthreads();
+        if (active) {
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const int row = ti + TI * i;
+#pragma unroll
+            for (int j = 0; j < RN; ++j) {
+              const int col = tj + TJ * j;
+              tile[(g * T + row) * TP + col] = acc[i][j];
+              if (ti != tj) tile[(g * T + col) * TP + row] = acc[i][j];
+            }
+            if (ti == tj && row < a.M && r < a.R)
+              norm[g * T + row] =
+                  epi.live(r, row, a.M) ? epi.norm(acc[i][i]) : -1.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+        __syncthreads();                    // every thread, spare ones too
+        // every thread finishes entries in the order of the output, so
+        // the group's blocks (one contiguous range) are stored coalesced
+        const int L = a.M;
+        float* o = a.out + r0 * L * static_cast<long long>(L);
+        for (int e = threadIdx.x; e < G * T * T; e += blockDim.x) {
+          const int gg = e / (T * T), row = e / T % T, col = e % T;
+          if (row < L && col < L && r0 + gg < a.R) {
+            const float nu = norm[gg * T + row], nv = norm[gg * T + col];
+            o[(gg * L + row) * L + col] =
+                nu < 0.f || nv < 0.f
+                    ? 0.f
+                    : epi.finish(tile[(gg * T + row) * TP + col], nu, nv);
+          }
+        }
+      } else if (active && r < a.R) {
         float* o = a.out + r * a.M * static_cast<long long>(a.N);
         // mirrored: the thread pairs ti < tj of a one-tile self-Gram,
         // every entry of an off-diagonal self-Gram tile pair
@@ -270,16 +348,12 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
   cp_async_wait<0>();
 }
 
-// Launch `kernel` (a __global__ wrapper of run<Tin, TM, TN, RM, RN, Src>)
-// on a persistent grid: as many blocks as fit on the card at once, at most
-// one per item.
-template <int TM, int TN, int RM, int RN, typename Src>
-cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
-                   cudaStream_t stream) {
-  constexpr int threads = group<TM, TN>() * (TM / RM) * (TN / RN);
-  static_assert(threads <= 256, "the kernels are bounded at 256 threads");
-  if (g.self && TM != TN) return cudaErrorInvalidValue;
-  const int shmem = smem_bytes<Src, TM, TN>(g);
+// The persistent grid of `kernel` with `threads` threads and `shmem` bytes
+// of shared memory a block: as many blocks as fit on the card at once, at
+// most one per item.
+template <typename Kernel>
+cudaError_t persistent_blocks(Kernel* kernel, const Grid& g, int threads,
+                              int shmem, unsigned& blocks) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
   if (err != cudaSuccess) return err;
@@ -292,8 +366,41 @@ cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
   if (err != cudaSuccess) return err;
   const long long resident =
       static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const long long blocks = g.items < resident ? g.items : resident;
-  kernel<<<static_cast<unsigned>(blocks), threads, shmem, stream>>>(g, src);
+  blocks = static_cast<unsigned>(g.items < resident ? g.items : resident);
+  return cudaSuccess;
+}
+
+// Launch `kernel` (a __global__ wrapper of run<Tin, TM, TN, RM, RN, Src>)
+// on a persistent grid.
+template <int TM, int TN, int RM, int RN, typename Src>
+cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
+                   cudaStream_t stream) {
+  constexpr int threads = group<TM, TN>() * (TM / RM) * (TN / RN);
+  static_assert(threads <= 256, "the kernels are bounded at 256 threads");
+  if (g.self && TM != TN) return cudaErrorInvalidValue;
+  const int shmem = smem_bytes<Src, TM, TN>(g);
+  unsigned blocks = 0;
+  cudaError_t err = persistent_blocks(kernel, g, threads, shmem, blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, shmem, stream>>>(g, src);
+  return cudaGetLastError();
+}
+
+// Launch `kernel` (a __global__ wrapper of run<Tin, TM, TN, RM, RN, Src,
+// Epi>) on a persistent grid.  A `kDiag` epilogue takes a one-tile
+// self-Gram only.
+template <int TM, int TN, int RM, int RN, typename Src, typename Epi>
+cudaError_t launch(void (*kernel)(Grid, Src, Epi), const Grid& g,
+                   const Src& src, const Epi& epi, cudaStream_t stream) {
+  constexpr int threads = group<TM, TN>() * (TM / RM) * (TN / RN);
+  static_assert(threads <= 256, "the kernels are bounded at 256 threads");
+  if (g.self && TM != TN) return cudaErrorInvalidValue;
+  if (Epi::kDiag && !(g.self && g.n_tm == 1)) return cudaErrorInvalidValue;
+  const int shmem = smem_bytes<Src, TM, TN, Epi>(g);
+  unsigned blocks = 0;
+  cudaError_t err = persistent_blocks(kernel, g, threads, shmem, blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, shmem, stream>>>(g, src, epi);
   return cudaGetLastError();
 }
 

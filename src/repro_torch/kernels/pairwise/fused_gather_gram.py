@@ -10,7 +10,11 @@ For every reducer ``r`` of a capacity bucket they compute, in fp32,
   two tables with independent gather maps and widths,
 
 zeroing masked slots at gather time; the gathered blocks are never written
-out.
+out.  With a ``metric`` the square wrapper returns the blocks finished into
+similarities instead (what the reference's fused executor computes after
+its kernel): in the kernel's epilogue where a bucket is one tile a side
+(``L <= 32``), else by :func:`finish_fused_blocks` in torch, and it can
+write them into a slice of a larger buffer (``out``).
 
 ``fused_gather_gram`` and ``fused_gather_gram_rect`` are the wrappers: on
 CUDA tensors they launch the hand-written kernels in
@@ -28,7 +32,9 @@ so that both stay within that bound on the card.
 
 Each square launch (or plain call on the CPU) runs inside an obs ``gram``
 span with its ``width`` and ``R``, device-timed on the card
-(``repro_torch.obs.trace``).
+(``repro_torch.obs.trace``); a finish in torch runs inside a ``finish``
+span.  Every square call with a metric counts one bucket in the obs counter
+``fused.finish{where=kernel|torch}``, by where its finish ran.
 """
 
 from __future__ import annotations
@@ -38,11 +44,13 @@ import ctypes
 
 import torch
 
+from repro_torch.obs import REGISTRY as _REGISTRY
 from repro_torch.obs import span as _obs_span
 
 from .. import _build
 
-__all__ = ["fused_gather_gram", "fused_gather_gram_ref",
+__all__ = ["FINISH_MAX_WIDTH", "METRICS", "finish_fused_blocks",
+           "fused_gather_gram", "fused_gather_gram_ref",
            "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
            "fused_traffic_model", "gather_bytes", "gather_rows",
            "ieee_fp32", "launch_count",
@@ -50,7 +58,12 @@ __all__ = ["fused_gather_gram", "fused_gather_gram_ref",
            "tile_width"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P]
+_SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
+# the square kernel's `metric` codes (Metric in csrc/fused_gather_gram.cu)
+METRICS = {None: 0, "dot": 1, "cosine": 2, "l2": 3}
+# the widest bucket whose block is one tile a side, so that the kernel's
+# epilogue holds its diagonal (FINISH_MAX_L in csrc/fused_gather_gram.cu)
+FINISH_MAX_WIDTH = 32
 _RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
 # the rect kernel's tile widths per side (TMIN / TMAX in
 # csrc/fused_gather_gram_rect.cu)
@@ -181,6 +194,30 @@ def fused_gather_gram_ref(x: torch.Tensor, idx: torch.Tensor,
         return torch.bmm(g, g.transpose(1, 2))
 
 
+def finish_fused_blocks(g: torch.Tensor, mask: torch.Tensor,
+                        metric: str) -> torch.Tensor:
+    """Metric post-processing of a masked per-reducer Gram stack, in torch.
+
+    Mirrors ``allpairs.block_similarity`` exactly: norms are the Gram
+    diagonal (masked rows were zeroed at gather time, so their norms are 0),
+    invalid pairs -> 0.  The square kernel's epilogue computes the same
+    values bit for bit.  Runs inside an obs ``finish`` span with the
+    blocks' ``width``, device-timed on the card.
+    """
+    with _obs_span("finish", device=g.device, width=g.shape[1]):
+        if metric != "dot":
+            n2 = torch.diagonal(g, dim1=1, dim2=2)            # (Rb, Lb)
+            if metric == "l2":
+                g = n2[:, :, None] + n2[:, None, :] - 2.0 * g
+            elif metric == "cosine":
+                nrm = torch.sqrt(n2 + 1e-9)
+                g = g / (nrm[:, :, None] * nrm[:, None, :])
+            else:
+                raise ValueError(metric)
+        valid = mask[:, :, None] & mask[:, None, :]
+        return torch.where(valid, g, 0.0)
+
+
 def fused_gather_gram_rect_ref(x: torch.Tensor, y: torch.Tensor,
                                xidx: torch.Tensor, xmask: torch.Tensor,
                                yidx: torch.Tensor,
@@ -244,38 +281,68 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
+                      mask: torch.Tensor, metric=None,
+                      out=None) -> torch.Tensor:
     """``(m, d)`` table, ``(R, L)`` int32 idx, ``(R, L)`` bool mask ->
-    ``(R, L, L)`` fp32 masked per-reducer Gram blocks.
+    ``(R, L, L)`` fp32 masked per-reducer Gram blocks, or with ``metric``
+    (``"dot"``, ``"cosine"``, ``"l2"``) those blocks finished into
+    similarities, bit for bit what :func:`finish_fused_blocks` gives on the
+    raw blocks.  ``out``, an ``(R, L, L)`` fp32 contiguous tensor on
+    ``x``'s device (a view into a larger buffer will do), receives the
+    result and is returned.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (fp32 or bf16 table, contiguous, all on one device) or raise.  Valid
-    slots must index rows of ``x``: the plain version raises otherwise, and
-    the kernel, which cannot raise without a sync, gives NaN for every
-    entry such a slot touches (it never reads outside the table)."""
+    (fp32 or bf16 table, contiguous, all on one device) or raise.  A metric
+    is finished in the kernel's epilogue up to width ``FINISH_MAX_WIDTH``
+    and in torch (:func:`finish_fused_blocks`) beyond it and on the CPU.
+    Valid slots must index rows of ``x``: the plain version raises
+    otherwise, and the kernel, which cannot raise without a sync, gives NaN
+    for every entry such a slot touches (it never reads outside the
+    table)."""
     if idx.dim() != 2 or mask.shape != idx.shape or x.dim() != 2:
         raise ValueError(f"want x (m, d), idx/mask (R, L); got "
                          f"{tuple(x.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(mask.shape)}")
+    if metric not in METRICS:
+        raise ValueError(f"metric {metric!r}: want one of {list(METRICS)}")
     R, L = idx.shape
+    if out is not None and (out.shape != (R, L, L)
+                            or out.dtype != torch.float32
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}: want ({R}, {L}, {L}) float32, "
+                         f"contiguous, on {x.device}")
+    in_kernel = (metric is not None and x.is_cuda
+                 and L <= FINISH_MAX_WIDTH)
+    if metric is not None:
+        _REGISTRY.counter("fused.finish",
+                          where="kernel" if in_kernel else "torch").inc()
     if _device_of(x) == "cpu":
         with _obs_span("gram", width=L, R=R):
-            return fused_gather_gram_ref(x, idx, mask)
-    (mask,) = _cuda_operands([x], [(idx, mask)])
-    out = torch.empty((R, L, L), dtype=torch.float32, device=x.device)
-    if R == 0:
-        return out
-    # the span holds the launch alone, so that its device interval is the
-    # kernel's and the host's checks before it count as the caller's
-    with _obs_span("gram", device=x.device, width=L, R=R), \
-            torch.cuda.device(x.device):
-        _build.launch(
-            "fused_gather_gram", _SQUARE_ARGS,
-            (x.data_ptr(), int(x.dtype == torch.bfloat16), idx.data_ptr(),
-             mask.data_ptr(), out.data_ptr(), R, L, x.shape[1], x.shape[0],
-             _stream(x)),
-            what=f"R={R}, L={L}, d={x.shape[1]}")
-    return out
+            g = fused_gather_gram_ref(x, idx, mask)
+    else:
+        (mask8,) = _cuda_operands([x], [(idx, mask)])
+        g = out if out is not None and (metric is None or in_kernel) else \
+            torch.empty((R, L, L), dtype=torch.float32, device=x.device)
+        if R == 0:
+            return g if out is None else out
+        # the span holds the launch alone, so that its device interval is
+        # the kernel's and the host's checks before it count as the caller's
+        with _obs_span("gram", device=x.device, width=L, R=R), \
+                torch.cuda.device(x.device):
+            _build.launch(
+                "fused_gather_gram", _SQUARE_ARGS,
+                (x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 idx.data_ptr(), mask8.data_ptr(), g.data_ptr(), R, L,
+                 x.shape[1], x.shape[0], METRICS[metric if in_kernel
+                                                 else None], _stream(x)),
+                what=f"R={R}, L={L}, d={x.shape[1]}, metric={metric}")
+    if metric is not None and not in_kernel:
+        g = finish_fused_blocks(g, mask.bool(), metric)
+    if out is None or g is out:
+        return g
+    return out.copy_(g)
 
 
 def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,

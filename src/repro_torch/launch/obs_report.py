@@ -9,7 +9,9 @@ report — or one JSON document with ``--json``:
 * the span totals per name (count, host and self host seconds) and the
   span ring, exportable as Chrome trace JSON (``--trace out.json``,
   loadable in Perfetto / chrome://tracing; a device-timed span carries its
-  ``device_ms``).
+  ``device_ms``),
+* the share of fused buckets whose metric was finished in the Gram
+  kernel's epilogue rather than in torch (counter ``fused.finish``).
 
 ``--demo`` first runs a small :class:`repro_torch.serve.PairwiseService`
 workload (pairs + x2y on the fused executor) so the report has something
@@ -32,9 +34,20 @@ import json
 from repro_torch.obs import EVENTS, LEDGER, REGISTRY, TRACER
 
 
+def finish_share() -> dict:
+    """Fused buckets finished in the Gram kernel's epilogue and in torch,
+    and the kernel's share (None before any)."""
+    kernel = REGISTRY.counter_total("fused.finish", where="kernel")
+    torch_ = REGISTRY.counter_total("fused.finish", where="torch")
+    total = kernel + torch_
+    return {"kernel": kernel, "torch": torch_,
+            "kernel_share": kernel / total if total else None}
+
+
 def gather(events_tail: int = 10) -> dict:
     """The full obs state as one JSON-ready document."""
     return {
+        "fused_finish": finish_share(),
         "metrics": REGISTRY.snapshot(),
         "ledger": {
             "records": LEDGER.seq,
@@ -76,6 +89,13 @@ def render(doc: dict) -> str:
                 f"  {k}: n={h['count']} mean={h['mean']:.4g} "
                 f"p50={h['p50']:.4g} p90={h['p90']:.4g} "
                 f"p99={h['p99']:.4g} max={h['max']:.4g}")
+
+    fin = doc["fused_finish"]
+    if fin["kernel_share"] is not None:
+        lines.append("\n-- fused metric finish --")
+        lines.append(f"  in the kernel: {fin['kernel']:g} of "
+                     f"{fin['kernel'] + fin['torch']:g} buckets "
+                     f"({100 * fin['kernel_share']:.1f}%)")
 
     lines.append("\n-- comm ledger --")
     led = doc["ledger"]

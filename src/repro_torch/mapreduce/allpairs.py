@@ -271,13 +271,19 @@ def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
     return srcmap
 
 
-def _assemble_from_srcmap(per_bucket, srcmap: torch.Tensor):
+def _assemble_from_srcmap(per_bucket, srcmap: torch.Tensor, flat=None):
     """Fused assembly: gather the (m, m) matrix from the concatenated
-    bucket blocks through the inverse-shuffle map (int64, on device)."""
+    bucket blocks through the inverse-shuffle map (int64, on device).
+    ``flat``, when the blocks were written into that concatenation
+    ``[0.0, blocks_0.ravel(), ...]`` in place, is gathered from as it is;
+    otherwise the blocks are concatenated first."""
     with _obs_span("assemble", device=srcmap.device):
-        vals = [torch.zeros(1, dtype=torch.float32, device=srcmap.device)]
-        vals += [g.reshape(-1) for _, g in per_bucket]
-        return torch.cat(vals)[srcmap]
+        if flat is None:
+            vals = [torch.zeros(1, dtype=torch.float32,
+                                device=srcmap.device)]
+            vals += [g.reshape(-1) for _, g in per_bucket]
+            flat = torch.cat(vals)
+        return flat[srcmap]
 
 
 def _run_and_assemble(x, plan, fn, m, mesh, executor,

@@ -24,9 +24,13 @@ Registered executors:
                 (``kernels.pairwise.fused_gather_gram``: the square kernel
                 for ``run_pairs``, the rectangular one for ``run_x2y`` and
                 so for block serving; their plain versions on a CPU
-                table), the metric finish in torch, then ONE assembly
-                gather through the inverse-shuffle source map.  Non-Gram
-                reducers fall back to bucketed, counted.
+                table), then ONE assembly gather through the
+                inverse-shuffle source map.  The square kernel finishes
+                the metric in its epilogue for buckets up to 32 wide and
+                writes each bucket into its slice of the vector the
+                assembly gathers from; wider buckets, the CPU and X2Y
+                finish in torch.  Non-Gram reducers fall back to
+                bucketed, counted.
 
 ``sharded``   — shard-balanced execution over a process group (the
                 "mesh", see ``repro_torch.compat``): ``partition_plan``
@@ -73,7 +77,6 @@ from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
 from repro_torch.obs import _config as _obs_config
-from repro_torch.obs import span as _obs_span
 
 from .engine import (
     ReducerPlan,
@@ -438,28 +441,6 @@ class BucketedExecutor(Executor):
 # ---------------------------------------------------------------------------
 # fused (gather+Gram kernel) executor
 # ---------------------------------------------------------------------------
-def _finish_fused_blocks(g, mask, metric: str):
-    """Metric post-processing of a masked per-reducer Gram stack.
-
-    Mirrors ``allpairs.block_similarity`` exactly: norms are the Gram
-    diagonal (masked rows were zeroed at gather time, so their norms are 0),
-    invalid pairs -> 0.  Runs inside an obs ``finish`` span with the
-    blocks' ``width``, device-timed on the card.
-    """
-    with _obs_span("finish", device=g.device, width=g.shape[1]):
-        if metric != "dot":
-            n2 = torch.diagonal(g, dim1=1, dim2=2)            # (Rb, Lb)
-            if metric == "l2":
-                g = n2[:, :, None] + n2[:, None, :] - 2.0 * g
-            elif metric == "cosine":
-                nrm = torch.sqrt(n2 + 1e-9)
-                g = g / (nrm[:, :, None] * nrm[:, None, :])
-            else:
-                raise ValueError(metric)
-        valid = mask[:, :, None] & mask[:, None, :]
-        return torch.where(valid, g, 0.0)
-
-
 def _take_masked(v, idx, mask):
     """``v[idx]`` with masked slots 0; a masked slot's index is not read."""
     return torch.where(mask, v[torch.where(mask, idx, 0).long()], 0.0)
@@ -495,6 +476,17 @@ def _table_norms(xt, yt, metric: str):
     return xt.float().square().sum(-1), yt.float().square().sum(-1)
 
 
+def _bucket_views(flat: torch.Tensor, arrays) -> list:
+    """Each bucket's ``(Rb, Lb, Lb)`` view of ``flat``, one after the other
+    from position 1: the layout ``allpairs._pair_source_map`` indexes."""
+    views, base = [], 1
+    for idx, _mask, _rows in arrays:
+        Rb, Lb = idx.shape
+        views.append(flat[base:base + Rb * Lb * Lb].view(Rb, Lb, Lb))
+        base += Rb * Lb * Lb
+    return views
+
+
 class FusedExecutor(Executor):
     """Fused shuffle execution: the gathered block stays out of memory.
 
@@ -504,6 +496,13 @@ class FusedExecutor(Executor):
     takes the plain version silently).  The ``kernel`` counter counts
     requests served by the kernel, ``streamed`` those served by the plain
     version on the CPU (the reference's name for its non-kernel path).
+
+    Without a process group every bucket is written, finished, into its
+    slice of ONE vector ``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]``
+    (the kernel's epilogue finishes buckets up to 32 wide; see
+    ``fused_gather_gram``), which the pair assembly gathers from with no
+    copy; with a group, each rank's finished blocks are all-gathered and
+    concatenated.
 
     Only Gram-block reducers are fusable: ``reducer_fn`` must carry a
     ``fused_metric`` attribute (see ``allpairs._block_fn``).  Any other
@@ -543,15 +542,7 @@ class FusedExecutor(Executor):
                 return postprocess(per_bucket, postprocess_arg)
             return out
 
-        group, S, rank = _compat.reducer_group(mesh)
-        mine = [rank_rows(b.R, S, rank) for b in plan.buckets]
-        self._count("kernel" if x.is_cuda else "streamed")
-        arrays = uploaded("buckets", plan, x,
-                          lambda dev: bucket_arrays(plan, dev))
-        local = [_finish_fused_blocks(
-            fused_gather_gram(x, idx[r], msk[r]), msk[r], metric)
-            for r, (idx, msk, _) in zip(mine, arrays)]
-        per_bucket = list(zip(arrays, all_ranks(local, group, S)))
+        per_bucket, _flat = self._finished(x, plan, metric, mesh)
         if postprocess is not None:
             return postprocess(per_bucket, postprocess_arg)
         if combine == "buckets":
@@ -565,6 +556,31 @@ class FusedExecutor(Executor):
             pad = L - g.shape[1]
             acc[rows] = torch.nn.functional.pad(g, (0, pad, 0, pad))
         return acc[:R]
+
+    def _finished(self, x, plan, metric: str, mesh):
+        """``(per_bucket, flat)``: each bucket's arrays beside its finished
+        ``(Rb, Lb, Lb)`` blocks, and ``flat``, the vector ``[0.0,
+        blocks_0.ravel(), ...]`` the blocks are views of, without a process
+        group (``None`` with one: the blocks are all-gathered)."""
+        group, S, rank = _compat.reducer_group(mesh)
+        mine = [rank_rows(b.R, S, rank) for b in plan.buckets]
+        self._count("kernel" if x.is_cuda else "streamed")
+        arrays = uploaded("buckets", plan, x,
+                          lambda dev: bucket_arrays(plan, dev))
+        # the kernel is called with positional arguments only, so that a
+        # wrapper of ``fused_gather_gram`` sees them all in ``*args``
+        if group is None:
+            flat = torch.empty(
+                1 + sum(idx.numel() * idx.shape[1] for idx, _, _ in arrays),
+                dtype=torch.float32, device=x.device)
+            blocks = [fused_gather_gram(x, idx, msk, metric, out)
+                      for (idx, msk, _), out in
+                      zip(arrays, _bucket_views(flat, arrays))]
+            flat[:1].zero_()        # after the launches, off the prologue
+            return list(zip(arrays, blocks)), flat
+        local = [fused_gather_gram(x, idx[r], msk[r], metric)
+                 for r, (idx, msk, _) in zip(mine, arrays)]
+        return list(zip(arrays, all_ranks(local, group, S))), None
 
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
@@ -580,9 +596,14 @@ class FusedExecutor(Executor):
             f"srcmap:{m}", plan, x,
             lambda dev: torch.as_tensor(_pair_source_map(plan, m),
                                         device=dev).long())
-        return self.run(x, plan, reducer_fn, mesh=mesh, device=x.device,
-                        postprocess=_assemble_from_srcmap,
-                        postprocess_arg=srcmap)
+        metric = getattr(reducer_fn, "fused_metric", None)
+        if metric is None or not plan.buckets:
+            return self.run(x, plan, reducer_fn, mesh=mesh, device=x.device,
+                            postprocess=_assemble_from_srcmap,
+                            postprocess_arg=srcmap)
+        self._count("calls")
+        per_bucket, flat = self._finished(x, plan, metric, mesh)
+        return _assemble_from_srcmap(per_bucket, srcmap, flat)
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
@@ -951,8 +972,7 @@ class ShardedExecutor(Executor):
                     plan, ("sharded", S), groups, count_y=False),
                 assembled_bytes=assembled, meta=meta)
         local = torch.cat([
-            _finish_fused_blocks(fused_gather_gram(x, idx, msk), msk,
-                                 metric).reshape(-1)
+            fused_gather_gram(x, idx, msk, metric).reshape(-1)
             for idx, msk in _rank_slices(f"sharded:{S}:{rank}", plan, x,
                                          groups, rank, 2)])
         # ONE cross-rank collective: every rank's finished blocks

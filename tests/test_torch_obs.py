@@ -328,6 +328,8 @@ def test_device_timing_without_a_profiler(cuda):
     torch.cuda.synchronize()
     (root, members), = obs.TRACER.requests("similarity")
     timed = [s for s in members if s.device_start is not None]
-    assert {s.name for s in timed} == {"gram", "finish", "assemble"}
+    # every bucket is at most 32 wide: the kernel finishes it, so the card
+    # records no finish span
+    assert {s.name for s in timed} == {"gram", "assemble"}
     assert all(s.device_ms is not None for s in timed)
     assert obs.TRACER.device_ms("similarity", "gram") > 0

@@ -364,7 +364,8 @@ def part_gram(libs) -> dict:
                     lambda f=f: checked(f(
                         xt.data_ptr(), int(dtype == torch.bfloat16),
                         idx.data_ptr(), m8.data_ptr(), out.data_ptr(), b.R,
-                        b.width, xt.shape[1], xt.shape[0], stream), "fgg"))
+                        b.width, xt.shape[1], xt.shape[0],
+                        fgg.METRICS[None], stream), "fgg"))
                 calls[f"pairwise_gram_stages{n}"] = (
                     lambda p=p: checked(p(
                         g.data_ptr(), None, int(dtype == torch.bfloat16),
