@@ -34,7 +34,9 @@ Each square launch (or plain call on the CPU) runs inside an obs ``gram``
 span with its ``width`` and ``R``, device-timed on the card
 (``repro_torch.obs.trace``); a finish in torch runs inside a ``finish``
 span.  Every square call with a metric counts one bucket in the obs counter
-``fused.finish{where=kernel|torch}``, by where its finish ran.
+``fused.finish{where=kernel|torch}``, by where its finish ran.  Each rect
+launch (or plain call) runs inside a ``gram`` span too, with its ``width``,
+``ywidth`` and ``R``; its callers finish the metric.
 """
 
 from __future__ import annotations
@@ -371,14 +373,19 @@ def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
                          f"{tuple(y.shape)}, {tuple(xidx.shape)}, "
                          f"{tuple(xmask.shape)}, {tuple(yidx.shape)}, "
                          f"{tuple(ymask.shape)}")
-    if _device_of(x) == "cpu":
-        return fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
-    xmask, ymask = _cuda_operands([x, y], [(xidx, xmask), (yidx, ymask)])
     (R, Lx), Ly = xidx.shape, yidx.shape[1]
+    if _device_of(x) == "cpu":
+        with _obs_span("gram", width=Lx, ywidth=Ly, R=R):
+            return fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx,
+                                              ymask)
+    xmask, ymask = _cuda_operands([x, y], [(xidx, xmask), (yidx, ymask)])
     out = torch.empty((R, Lx, Ly), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
+    # the span holds the launch alone, so that its device interval is the
+    # kernel's (as in the square wrapper)
+    with _obs_span("gram", device=x.device, width=Lx, ywidth=Ly, R=R), \
+            torch.cuda.device(x.device):
         _build.launch(
             "fused_gather_gram_rect", _RECT_ARGS,
             (x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),

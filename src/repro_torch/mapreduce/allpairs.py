@@ -185,23 +185,25 @@ def _pair_source_map_rect(plan: ReducerPlan, mx: int,
     stacks.  Like :func:`_pair_source_map` with decoupled axes — rows come
     from each bucket's X-side ids, columns from its Y-side ids, and there
     is no diagonal to zero (an (x, y) pair is never a self-pair).
-    Uncovered cells point at slot 0 (-> 0.0).  Cached on the plan."""
+    Uncovered cells point at slot 0 (-> 0.0).  Cached on the plan; a build
+    runs in a ``plan.srcmap`` span."""
     cached = plan.__dict__.get("_pair_srcmap_rect")
     if cached is not None and cached[0] == (mx, my):
         return cached[1]
     _check_srcmap_size(plan, lambda b: b.R * b.width * b.ywidth)
-    srcmap = np.zeros((mx, my), np.int32)
-    base = 1
-    for b in plan.buckets:
-        Rb, Lx = b.idx.shape
-        Ly = b.yidx.shape[1]
-        rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lx, Ly))
-        cols = np.broadcast_to(b.yidx[:, None, :], (Rb, Lx, Ly))
-        valid = b.mask[:, :, None] & b.ymask[:, None, :]
-        pos = np.arange(base, base + Rb * Lx * Ly,
-                        dtype=np.int64).reshape(Rb, Lx, Ly)
-        srcmap[rows[valid], cols[valid]] = pos[valid]
-        base += Rb * Lx * Ly
+    with _obs_span("plan.srcmap", mx=mx, my=my):
+        srcmap = np.zeros((mx, my), np.int32)
+        base = 1
+        for b in plan.buckets:
+            Rb, Lx = b.idx.shape
+            Ly = b.yidx.shape[1]
+            rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lx, Ly))
+            cols = np.broadcast_to(b.yidx[:, None, :], (Rb, Lx, Ly))
+            valid = b.mask[:, :, None] & b.ymask[:, None, :]
+            pos = np.arange(base, base + Rb * Lx * Ly,
+                            dtype=np.int64).reshape(Rb, Lx, Ly)
+            srcmap[rows[valid], cols[valid]] = pos[valid]
+            base += Rb * Lx * Ly
     object.__setattr__(plan, "_pair_srcmap_rect", ((mx, my), srcmap))
     return srcmap
 

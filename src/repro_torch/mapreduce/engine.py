@@ -546,15 +546,22 @@ def build_x2y_plan(schema: MappingSchema, num_x: int, *,
     ``0..num_x-1`` are X, ``num_x..`` are Y) into a rectangular plan:
     each reducer's expanded ids are split at the X/Y boundary, Y ids are
     re-based to Y-table-local rows, and capacity buckets group reducers by
-    (wx, wy) power-of-two width pairs."""
-    expanded = schema.expand()
-    xs = [[i for i in ids if i < num_x] for ids in expanded]
-    ys = [[i - num_x for i in ids if i >= num_x] for ids in expanded]
-    return build_x2y_plan_arrays(
-        xs, ys, num_x=num_x, num_y=len(schema.weights) - num_x,
-        comm_cost=schema.communication_cost(), algorithm=schema.algorithm,
-        lower_bound=schema.lower_bound, pad_reducers_to=pad_reducers_to,
-        pad_slots_to=pad_slots_to, max_buckets=max_buckets)
+    (wx, wy) power-of-two width pairs.  Runs in a ``plan.build`` span, as
+    ``build_plan`` does."""
+    with _obs_span("plan.build") as sp:
+        expanded = schema.expand()
+        xs = [[i for i in ids if i < num_x] for ids in expanded]
+        ys = [[i - num_x for i in ids if i >= num_x] for ids in expanded]
+        plan = build_x2y_plan_arrays(
+            xs, ys, num_x=num_x, num_y=len(schema.weights) - num_x,
+            comm_cost=schema.communication_cost(),
+            algorithm=schema.algorithm, lower_bound=schema.lower_bound,
+            pad_reducers_to=pad_reducers_to, pad_slots_to=pad_slots_to,
+            max_buckets=max_buckets)
+        if sp is not None:
+            sp.attrs.update(reducers=plan.num_reducers,
+                            buckets=len(plan.buckets))
+        return plan
 
 
 def _opt_array(a, dtype) -> Optional[np.ndarray]:

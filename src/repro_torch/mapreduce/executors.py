@@ -77,6 +77,7 @@ from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
 from repro_torch.obs import _config as _obs_config
+from repro_torch.obs import span as _obs_span
 
 from .engine import (
     ReducerPlan,
@@ -446,6 +447,14 @@ def _take_masked(v, idx, mask):
     return torch.where(mask, v[torch.where(mask, idx, 0).long()], 0.0)
 
 
+# the rect launches' counters: every launch with a metric finishes in
+# torch, and computes R Lx Ly entries, of which the valid pairs are wanted
+_RECT_FINISH = _REGISTRY_OBS.counter("fused.finish", where="torch",
+                                     shape="rect")
+_RECT_VALID = _REGISTRY_OBS.counter("fused.rect_entries", kind="valid")
+_RECT_COMPUTED = _REGISTRY_OBS.counter("fused.rect_entries", kind="computed")
+
+
 def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
     """Metric post-processing of a masked rectangular cross-Gram stack.
 
@@ -453,19 +462,48 @@ def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
     diagonal, so per-row squared norms are gathered from the table-level
     fp32 vectors ``n2x``/``n2y`` (``None`` for ``dot``; masked slots -> 0,
     matching the zero-masked gathers of the reference path); invalid
-    pairs -> 0."""
-    if metric != "dot":
-        gx = _take_masked(n2x, xidx, xmask)               # (Rb, Lx)
-        gy = _take_masked(n2y, yidx, ymask)               # (Rb, Ly)
-        if metric == "l2":
-            g = gx[:, :, None] + gy[:, None, :] - 2.0 * g
-        elif metric == "cosine":
-            g = g / (torch.sqrt(gx + 1e-9)[:, :, None]
-                     * torch.sqrt(gy + 1e-9)[:, None, :])
-        else:
-            raise ValueError(metric)
-    valid = xmask[:, :, None] & ymask[:, None, :]
-    return torch.where(valid, g, 0.0)
+    pairs -> 0.  Counts one bucket in ``fused.finish{where=torch,
+    shape=rect}`` and runs in an obs ``finish`` span with the blocks'
+    ``width`` and ``ywidth``, device-timed on the card."""
+    _RECT_FINISH.inc()
+    with _obs_span("finish", device=g.device, width=g.shape[1],
+                   ywidth=g.shape[2]):
+        if metric != "dot":
+            gx = _take_masked(n2x, xidx, xmask)               # (Rb, Lx)
+            gy = _take_masked(n2y, yidx, ymask)               # (Rb, Ly)
+            if metric == "l2":
+                g = gx[:, :, None] + gy[:, None, :] - 2.0 * g
+            elif metric == "cosine":
+                g = g / (torch.sqrt(gx + 1e-9)[:, :, None]
+                         * torch.sqrt(gy + 1e-9)[:, None, :])
+            else:
+                raise ValueError(metric)
+        valid = xmask[:, :, None] & ymask[:, None, :]
+        return torch.where(valid, g, 0.0)
+
+
+def _rect_valid_pairs(plan, i: int, rows: slice) -> int:
+    """Valid (x, y) pairs in rows ``rows`` of rect bucket ``i``: over its
+    reducers, valid X slots times valid Y slots.  Cached on the plan."""
+    cache = plan.__dict__.get("_rect_valid_pairs")
+    if cache is None:
+        cache = {}
+        object.__setattr__(plan, "_rect_valid_pairs", cache)
+    key = (i, rows.start, rows.stop)
+    n = cache.get(key)
+    if n is None:
+        b = plan.buckets[i]
+        n = cache[key] = int((b.mask[rows].sum(1, dtype=np.int64)
+                              * b.ymask[rows].sum(1, dtype=np.int64)).sum())
+    return n
+
+
+def _largest_first(plan, rows) -> list:
+    """Rect bucket positions by the entries their launch computes, the most
+    first (ties in bucket order); ``rows`` are this rank's row slices."""
+    return sorted(range(len(plan.buckets)), key=lambda i: -(
+        (rows[i].stop - rows[i].start) * plan.buckets[i].width
+        * plan.buckets[i].ywidth))
 
 
 def _table_norms(xt, yt, metric: str):
@@ -613,17 +651,19 @@ class FusedExecutor(Executor):
         all-gather), and ONE inverse-shuffle gather assembles the (mx, my)
         matrix.  Non-Gram reducers fall back to the rect-bucketed path
         (identical outputs; counted).  ``use_kernel`` is accepted for
-        signature parity."""
+        signature parity.  Each launch counts its entries in
+        ``fused.rect_entries{kind=valid|computed}``; the assembly runs in
+        an ``assemble`` span."""
         from .allpairs import (
             _pair_source_map_rect,
             assemble_x2y_matrix_bucketed,
         )
         xt, yt = _as_tables(tables, device)
         self._count("calls")
-        self._reconcile(plan, "x2y", xt,
-                        measured_slots=_bucket_valid_slots(plan))
         metric = getattr(reducer_fn, "fused_metric", None)
         if metric is None or not plan.buckets:
+            self._reconcile(plan, "x2y", xt,
+                            measured_slots=_bucket_valid_slots(plan))
             self._count_fallback(
                 "non_gram_reducer" if metric is None else "no_buckets")
             per_bucket = run_reducers_x2y_bucketed(
@@ -638,19 +678,32 @@ class FusedExecutor(Executor):
         arrays = uploaded("x2y-buckets", plan, xt,
                           lambda dev: rect_bucket_arrays(plan, dev),
                           ytable=yt)
+        # the largest block first, and the norms, the ledger and the source
+        # map after its launch: the card starts on its longest kernel while
+        # the host does the rest (small buckets first, and the host's
+        # bookkeeping before any launch, kept the card waiting on the host)
+        local, norms = [None] * len(arrays), None
+        for i in _largest_first(plan, mine):
+            r = mine[i]
+            s = [a[r] for a in arrays[i][:4]]
+            _RECT_VALID.inc(_rect_valid_pairs(plan, i, r))
+            _RECT_COMPUTED.inc(s[0].numel() * s[2].shape[1])
+            g = fused_gather_gram_rect(xt, yt, *s)
+            if norms is None:
+                norms = _table_norms(xt, yt, metric)
+            local[i] = _finish_rect_blocks(g, *s, *norms, metric)
+            del g
+        self._reconcile(plan, "x2y", xt,
+                        measured_slots=_bucket_valid_slots(plan))
         srcmap = uploaded(
             f"srcmap-rect:{mx}x{my}", plan, xt,
             lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
                                         device=dev).long(), ytable=yt)
-        n2x, n2y = _table_norms(xt, yt, metric)
-        local = []
-        for r, arr in zip(mine, arrays):
-            s = [a[r] for a in arr[:4]]
-            local.append(_finish_rect_blocks(fused_gather_gram_rect(
-                xt, yt, *s), *s, n2x, n2y, metric))
+        blocks = all_ranks(local, group, S)
         # rectangular inverse shuffle: ONE assembly gather through the
         # host-built source map (slot 0 -> 0.0 for uncovered cells)
-        return _with_zero_slot(all_ranks(local, group, S))[srcmap]
+        with _obs_span("assemble", device=xt.device):
+            return _with_zero_slot(blocks)[srcmap]
 
 
 # ---------------------------------------------------------------------------
