@@ -1488,6 +1488,18 @@ def square_plain(x, idx, mask, metric=None, out=None):
     return g if metric is None else fgg.finish_fused_blocks(g, mask, metric)
 
 
+def rect_plain(x, y, xidx, xmask, yidx, ymask, metric=None, out=None,
+               norms=None):
+    """The rect kernel's plain version with its metric finish in torch
+    (``out`` is where the kernel wrote; the plain version allocates)."""
+    g = fgg.fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
+    if metric is None:
+        return g
+    return fgg.finish_rect_blocks(
+        g, xidx, xmask.bool(), yidx, ymask.bool(),
+        *(norms or fgg.rect_table_norms(x, y, metric)), metric)
+
+
 class KernelSpy:
     """Records each launch of the three Gram kernels the executors make
     (its operands and output) to hold it against its plain version
@@ -1498,7 +1510,7 @@ class KernelSpy:
     TARGETS = {
         "fused_gather_gram": (port_ex, "fused_gather_gram", square_plain),
         "fused_gather_gram_rect": (port_ex, "fused_gather_gram_rect",
-                                   fgg.fused_gather_gram_rect_ref),
+                                   rect_plain),
         "pairwise_gram": (pg, "pairwise_gram_batched",
                           pg.pairwise_gram_ref)}
 

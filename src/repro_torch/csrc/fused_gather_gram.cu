@@ -88,6 +88,7 @@ constexpr int FINISH_MAX_L = 32;    // one tile a side: the diagonal at hand
 // a masked slot.
 struct Finish {
   static constexpr bool kDiag = true;
+  static constexpr bool kNorms = false;
   const uint8_t* mask;      // (R, L)
   int metric;               // DOT, COSINE or L2
 

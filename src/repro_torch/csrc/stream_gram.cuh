@@ -44,20 +44,34 @@
 //     inside (M, N) stored, so a position with no row of A or B (a masked
 //     slot, a slot past M or N, a reducer past R) is staged as zeros.
 //
-// An epilogue policy `Epi` says what an item's last chunk stores:
-//   static constexpr bool kDiag: false (Identity, the default) stores the
-//     products; true finishes them first, from the block's own diagonal,
-//     and then needs a one-tile self-Gram (self, M == N <= TM == TN,
-//     RM == RN; the caller's promise), so that reducer r's diagonal lies in
-//     the item.  After a barrier the threads put their products (and
-//     mirrors) into the stage they have just multiplied, as G padded
-//     T x T tiles, and the ones that hold the diagonal put each slot i's
-//     epi.norm(g_ii), or -1 where epi.live(r, i, M) is false, beside them;
-//     after a second barrier every thread of the block (the spare ones
-//     that only stage rows included) finishes entries in the order of the
-//     output, so that the group's blocks, one contiguous range, are
-//     stored coalesced: epi.finish(g_ij, norm_i, norm_j) where both slots
-//     are live, else +0.
+// An epilogue policy `Epi` says what an item's last chunk stores; with
+// kDiag and kNorms both false (Identity, the default) it stores the
+// products:
+//   static constexpr bool kDiag: true finishes them first, from the
+//     block's own diagonal, and then needs a one-tile self-Gram (self,
+//     M == N <= TM == TN, RM == RN; the caller's promise), so that reducer
+//     r's diagonal lies in the item.  After a barrier the threads put their
+//     products (and mirrors) into the stage they have just multiplied, as
+//     G padded T x T tiles, and the ones that hold the diagonal put each
+//     slot i's epi.norm(g_ii), or -1 where epi.live(r, i, M) is false,
+//     beside them; after a second barrier every thread of the block (the
+//     spare ones that only stage rows included) finishes entries in the
+//     order of the output, so that the group's blocks, one contiguous
+//     range, are stored coalesced: epi.finish(g_ij, norm_i, norm_j) where
+//     both slots are live, else +0.
+//   static constexpr bool kNorms: true finishes a one-tile cross block
+//     (not self, M <= TM, N <= TN; the caller's promise) from norms held
+//     outside it: a cross block has no diagonal.  It takes a kTable source
+//     whose table lists the item's G * TM rows of A and then its G * TN
+//     rows of B as gathered_rows' codes (a row of the table, -1 for no row,
+//     -2 for a valid slot outside the table), which the source's last load
+//     of the item has done reading.  After a barrier each table entry is
+//     turned, in place, into its slot's epi.norm(side, code), -1 where the
+//     slot is not live, and the products go into the stage just
+//     multiplied as G padded TM x TN tiles; after a second barrier every
+//     thread of the block finishes entries in the order of the output, as
+//     kDiag does: with one tile a side the group's G blocks of M N floats
+//     are one contiguous range, stored coalesced.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,6 +100,7 @@ struct Grid {
 // The epilogue that stores the products as they are.
 struct Identity {
   static constexpr bool kDiag = false;
+  static constexpr bool kNorms = false;
 };
 
 // Reducers per block for tiles TM x TN.
@@ -318,6 +333,46 @@ __device__ __forceinline__ void run(const Grid& a, const Src& src,
                     : epi.finish(tile[(gg * T + row) * TP + col], nu, nv);
           }
         }
+      } else if constexpr (Epi::kNorms) {
+        static_assert(Src::kTable, "the norms are read through the table");
+        static_assert(TABLE >= G * (TM + TN), "a table entry a slot");
+        static_assert(G * TM * (TN + 1) * sizeof(float) <=
+                          G * (TM + TN) * RS,
+                      "a stage holds the group's padded tiles");
+        constexpr int TP = TN + 1;            // tile row stride, padded
+        float* tile = reinterpret_cast<float*>(smem + (s % STAGES) *
+                                               stage_bytes);
+        // the item's row table, each entry turned into its slot's norm
+        int* table = tables + ((s / n_chunks) % STAGES) * TABLE;
+        float* norm = reinterpret_cast<float*>(table);
+        __syncthreads();
+        for (int e = threadIdx.x; e < G * (TM + TN); e += blockDim.x)
+          norm[e] = epi.norm(e >= G * TM, table[e]);
+        if (active) {
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < RN; ++j)
+              tile[(g * TM + ti + TI * i) * TP + tj + TJ * j] = acc[i][j];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+        __syncthreads();                    // every thread, spare ones too
+        const int M = a.M, N = a.N;
+        float* o = a.out + r0 * M * static_cast<long long>(N);
+        for (int e = threadIdx.x; e < G * TM * TN; e += blockDim.x) {
+          const int gg = e / (TM * TN), row = e / TN % TM, col = e % TN;
+          if (row < M && col < N && r0 + gg < a.R) {
+            const float nu = norm[gg * TM + row];
+            const float nv = norm[G * TM + gg * TN + col];
+            o[(gg * M + row) * N + col] =
+                nu < 0.f || nv < 0.f
+                    ? 0.f
+                    : epi.finish(tile[(gg * TM + row) * TP + col], nu, nv);
+          }
+        }
       } else if (active && r < a.R) {
         float* o = a.out + r * a.M * static_cast<long long>(a.N);
         // mirrored: the thread pairs ti < tj of a one-tile self-Gram,
@@ -388,7 +443,7 @@ cudaError_t launch(void (*kernel)(Grid, Src), const Grid& g, const Src& src,
 
 // Launch `kernel` (a __global__ wrapper of run<Tin, TM, TN, RM, RN, Src,
 // Epi>) on a persistent grid.  A `kDiag` epilogue takes a one-tile
-// self-Gram only.
+// self-Gram only, a `kNorms` one a one-tile cross block.
 template <int TM, int TN, int RM, int RN, typename Src, typename Epi>
 cudaError_t launch(void (*kernel)(Grid, Src, Epi), const Grid& g,
                    const Src& src, const Epi& epi, cudaStream_t stream) {
@@ -396,6 +451,8 @@ cudaError_t launch(void (*kernel)(Grid, Src, Epi), const Grid& g,
   static_assert(threads <= 256, "the kernels are bounded at 256 threads");
   if (g.self && TM != TN) return cudaErrorInvalidValue;
   if (Epi::kDiag && !(g.self && g.n_tm == 1)) return cudaErrorInvalidValue;
+  if (Epi::kNorms && !(!g.self && g.n_tm == 1 && g.n_tn == 1))
+    return cudaErrorInvalidValue;
   const int shmem = smem_bytes<Src, TM, TN, Epi>(g);
   unsigned blocks = 0;
   cudaError_t err = persistent_blocks(kernel, g, threads, shmem, blocks);

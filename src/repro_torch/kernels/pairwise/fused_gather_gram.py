@@ -10,10 +10,11 @@ For every reducer ``r`` of a capacity bucket they compute, in fp32,
   two tables with independent gather maps and widths,
 
 zeroing masked slots at gather time; the gathered blocks are never written
-out.  With a ``metric`` the square wrapper returns the blocks finished into
+out.  With a ``metric`` both wrappers return the blocks finished into
 similarities instead (what the reference's fused executor computes after
 its kernel): in the kernel's epilogue where a bucket is one tile a side
-(``L <= 32``), else by :func:`finish_fused_blocks` in torch, and it can
+(``L <= 32``; rect ``Lx, Ly <= 32``), else in torch
+(:func:`finish_fused_blocks`, :func:`finish_rect_blocks`), and they can
 write them into a slice of a larger buffer (``out``).
 
 ``fused_gather_gram`` and ``fused_gather_gram_rect`` are the wrappers: on
@@ -36,7 +37,8 @@ span with its ``width`` and ``R``, device-timed on the card
 span.  Every square call with a metric counts one bucket in the obs counter
 ``fused.finish{where=kernel|torch}``, by where its finish ran.  Each rect
 launch (or plain call) runs inside a ``gram`` span too, with its ``width``,
-``ywidth`` and ``R``; its callers finish the metric.
+``ywidth`` and ``R``, and every rect call with a metric counts one bucket
+in ``fused.finish{where=kernel|torch, shape=rect}``.
 """
 
 from __future__ import annotations
@@ -53,20 +55,23 @@ from .. import _build
 
 __all__ = ["FINISH_MAX_WIDTH", "METRICS", "finish_fused_blocks",
            "fused_gather_gram", "fused_gather_gram_ref",
+           "finish_rect_blocks",
            "fused_gather_gram_rect", "fused_gather_gram_rect_ref",
            "fused_traffic_model", "gather_bytes", "gather_rows",
            "ieee_fp32", "launch_count",
-           "rect_gather_bytes", "rect_tile_widths", "reset_launch_count",
-           "tile_width"]
+           "rect_gather_bytes", "rect_table_norms", "rect_tile_widths",
+           "reset_launch_count", "tile_width"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SQUARE_ARGS = [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
 # the square kernel's `metric` codes (Metric in csrc/fused_gather_gram.cu)
 METRICS = {None: 0, "dot": 1, "cosine": 2, "l2": 3}
-# the widest bucket whose block is one tile a side, so that the kernel's
-# epilogue holds its diagonal (FINISH_MAX_L in csrc/fused_gather_gram.cu)
+# the widest bucket (rect: on either side) whose block is one tile a side,
+# so that the kernel's epilogue holds all of it (FINISH_MAX_L in
+# csrc/fused_gather_gram.cu and csrc/fused_gather_gram_rect.cu)
 FINISH_MAX_WIDTH = 32
-_RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
+_RECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+              _P, _P, _P]
 # the rect kernel's tile widths per side (TMIN / TMAX in
 # csrc/fused_gather_gram_rect.cu)
 RECT_TMIN, RECT_TMAX = 1, 32
@@ -232,6 +237,60 @@ def fused_gather_gram_rect_ref(x: torch.Tensor, y: torch.Tensor,
         return torch.bmm(gx, gy.transpose(1, 2))
 
 
+def rect_table_norms(x: torch.Tensor, y: torch.Tensor, metric: str):
+    """Per-row fp32 squared norms of both tables, ``(n2x, n2y)``
+    (``(None, None)`` for ``dot``, which needs none): what the rect finish
+    reads for each slot, in torch or in the kernel's epilogue."""
+    if metric == "dot":
+        return None, None
+    return x.float().square().sum(-1), y.float().square().sum(-1)
+
+
+def _take_masked(v, idx, mask):
+    """``v[idx]`` with masked slots 0; a masked slot's index is not read."""
+    return torch.where(mask, v[torch.where(mask, idx, 0).long()], 0.0)
+
+
+def finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y,
+                       metric: str) -> torch.Tensor:
+    """Metric post-processing of a masked rectangular cross-Gram stack, in
+    torch.
+
+    Mirrors ``allpairs.block_similarity_x2y``.  Cross blocks carry no Gram
+    diagonal, so per-slot squared norms are gathered from the table-level
+    fp32 vectors ``n2x``/``n2y`` (:func:`rect_table_norms`; ``None`` for
+    ``dot``; masked slots -> 0, matching the zero-masked gathers of the
+    reference path); invalid pairs -> 0.  The rect kernel's epilogue
+    computes the same values bit for bit.  Masks are bool.  Runs in an obs
+    ``finish`` span with the blocks' ``width`` and ``ywidth``, device-timed
+    on the card."""
+    with _obs_span("finish", device=g.device, width=g.shape[1],
+                   ywidth=g.shape[2]):
+        if metric != "dot":
+            gx = _take_masked(n2x, xidx, xmask)               # (Rb, Lx)
+            gy = _take_masked(n2y, yidx, ymask)               # (Rb, Ly)
+            if metric == "l2":
+                g = gx[:, :, None] + gy[:, None, :] - 2.0 * g
+            elif metric == "cosine":
+                g = g / (torch.sqrt(gx + 1e-9)[:, :, None]
+                         * torch.sqrt(gy + 1e-9)[:, None, :])
+            else:
+                raise ValueError(metric)
+        valid = xmask[:, :, None] & ymask[:, None, :]
+        return torch.where(valid, g, 0.0)
+
+
+def _check_out(out, shape, x):
+    """Raise unless ``out`` (when given) is an fp32 contiguous tensor of
+    ``shape`` on ``x``'s device."""
+    if out is not None and (out.shape != shape or out.dtype != torch.float32
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}: want {shape} float32, "
+                         f"contiguous, on {x.device}")
+
+
 def _cuda_operands(tables, index_pairs):
     """Check what the kernels take — one CUDA device, fp32 or bf16 tables
     of one dtype, int32 indices, bool/uint8 masks, all contiguous — and
@@ -308,13 +367,7 @@ def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
     if metric not in METRICS:
         raise ValueError(f"metric {metric!r}: want one of {list(METRICS)}")
     R, L = idx.shape
-    if out is not None and (out.shape != (R, L, L)
-                            or out.dtype != torch.float32
-                            or out.device != x.device
-                            or not out.is_contiguous()):
-        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on "
-                         f"{out.device}: want ({R}, {L}, {L}) float32, "
-                         f"contiguous, on {x.device}")
+    _check_out(out, (R, L, L), x)
     in_kernel = (metric is not None and x.is_cuda
                  and L <= FINISH_MAX_WIDTH)
     if metric is not None:
@@ -349,14 +402,23 @@ def fused_gather_gram(x: torch.Tensor, idx: torch.Tensor,
 
 def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
                            xidx: torch.Tensor, xmask: torch.Tensor,
-                           yidx: torch.Tensor,
-                           ymask: torch.Tensor) -> torch.Tensor:
+                           yidx: torch.Tensor, ymask: torch.Tensor,
+                           metric=None, out=None,
+                           norms=None) -> torch.Tensor:
     """``(mx, d)`` X table, ``(my, d)`` Y table, ``(R, Lx)`` X-side and
     ``(R, Ly)`` Y-side int32 idx / bool mask -> ``(R, Lx, Ly)`` fp32 masked
-    per-reducer cross-Gram blocks.
+    per-reducer cross-Gram blocks, or with ``metric`` (``"dot"``,
+    ``"cosine"``, ``"l2"``) those blocks finished into similarities, bit
+    for bit what :func:`finish_rect_blocks` gives on the raw blocks.
+    ``norms``, the tables' ``(n2x, n2y)`` of :func:`rect_table_norms`, is
+    computed here when not given.  ``out``, an ``(R, Lx, Ly)`` fp32
+    contiguous tensor on ``x``'s device (a view into a larger buffer will
+    do), receives the result and is returned.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  ``x`` and ``y`` may be row slices of one table, even
+    raise.  A metric is finished in the kernel's epilogue when both widths
+    are at most ``FINISH_MAX_WIDTH`` and in torch beyond them and on the
+    CPU.  ``x`` and ``y`` may be row slices of one table, even
     overlapping ones (block serving passes ``x[i0:i1]`` and ``x[j0:j1]``):
     the kernel only reads them.  Entry ``(i, j)`` is the product of X slot
     ``i``'s row and Y slot ``j``'s row, a masked slot standing for a zero
@@ -364,7 +426,8 @@ def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
     kernel as in the plain version.  Valid slots must index rows of their
     tables: the plain version raises otherwise, and the kernel gives NaN
     for every entry of that slot's row (X) or column (Y) (it never reads
-    outside a table).  The kernel reads only valid slots' rows."""
+    outside a table), finished or not.  The kernel reads only valid slots'
+    rows."""
     if (xidx.dim() != 2 or xmask.shape != xidx.shape or yidx.dim() != 2
             or ymask.shape != yidx.shape or yidx.shape[0] != xidx.shape[0]
             or x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]):
@@ -373,24 +436,62 @@ def fused_gather_gram_rect(x: torch.Tensor, y: torch.Tensor,
                          f"{tuple(y.shape)}, {tuple(xidx.shape)}, "
                          f"{tuple(xmask.shape)}, {tuple(yidx.shape)}, "
                          f"{tuple(ymask.shape)}")
+    if metric not in METRICS:
+        raise ValueError(f"metric {metric!r}: want one of {list(METRICS)}")
     (R, Lx), Ly = xidx.shape, yidx.shape[1]
+    _check_out(out, (R, Lx, Ly), x)
+    in_kernel = (metric is not None and x.is_cuda
+                 and max(Lx, Ly) <= FINISH_MAX_WIDTH)
+    if metric is not None:
+        _REGISTRY.counter("fused.finish", where="kernel" if in_kernel
+                          else "torch", shape="rect").inc()
+        if norms is None:
+            norms = rect_table_norms(x, y, metric)
     if _device_of(x) == "cpu":
         with _obs_span("gram", width=Lx, ywidth=Ly, R=R):
-            return fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx,
-                                              ymask)
-    xmask, ymask = _cuda_operands([x, y], [(xidx, xmask), (yidx, ymask)])
-    out = torch.empty((R, Lx, Ly), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    # the span holds the launch alone, so that its device interval is the
-    # kernel's (as in the square wrapper)
-    with _obs_span("gram", device=x.device, width=Lx, ywidth=Ly, R=R), \
-            torch.cuda.device(x.device):
-        _build.launch(
-            "fused_gather_gram_rect", _RECT_ARGS,
-            (x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-             xidx.data_ptr(), xmask.data_ptr(), yidx.data_ptr(),
-             ymask.data_ptr(), out.data_ptr(), R, Lx, Ly, x.shape[1],
-             x.shape[0], y.shape[0], _stream(x)),
-            what=f"R={R}, Lx={Lx}, Ly={Ly}, d={x.shape[1]}")
-    return out
+            g = fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
+    else:
+        xm8, ym8 = _cuda_operands([x, y], [(xidx, xmask), (yidx, ymask)])
+        g = out if out is not None and (metric is None or in_kernel) else \
+            torch.empty((R, Lx, Ly), dtype=torch.float32, device=x.device)
+        if g.numel() == 0:
+            return g if out is None else out
+        n2 = (None, None)
+        if in_kernel and metric != "dot":
+            n2 = tuple(_norm_operand(n, t, side)
+                       for n, t, side in zip(norms, (x, y), "xy"))
+        # the span holds the launch alone, so that its device interval is
+        # the kernel's (as in the square wrapper)
+        with _obs_span("gram", device=x.device, width=Lx, ywidth=Ly, R=R), \
+                torch.cuda.device(x.device):
+            _build.launch(
+                "fused_gather_gram_rect", _RECT_ARGS,
+                (x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+                 xidx.data_ptr(), xm8.data_ptr(), yidx.data_ptr(),
+                 ym8.data_ptr(), g.data_ptr(), R, Lx, Ly, x.shape[1],
+                 x.shape[0], y.shape[0],
+                 METRICS[metric if in_kernel else None],
+                 *(n.data_ptr() if n is not None else None for n in n2),
+                 _stream(x)),
+                what=f"R={R}, Lx={Lx}, Ly={Ly}, d={x.shape[1]}, "
+                     f"metric={metric}")
+    if metric is not None and not in_kernel:
+        g = finish_rect_blocks(g, xidx, xmask.bool(), yidx, ymask.bool(),
+                               *norms, metric)
+    if out is None or g is out:
+        return g
+    return out.copy_(g)
+
+
+def _norm_operand(n2, table, side: str) -> torch.Tensor:
+    """Check a table's squared norms for the rect epilogue, which reads
+    them by row: an fp32 contiguous vector of one entry a row, on the
+    table's device."""
+    if (n2 is None or n2.shape != (table.shape[0],)
+            or n2.dtype != torch.float32 or n2.device != table.device
+            or not n2.is_contiguous()):
+        got = None if n2 is None else (tuple(n2.shape), n2.dtype, n2.device)
+        raise ValueError(f"norms of {side}: got {got}, want "
+                         f"({table.shape[0]},) float32, contiguous, on "
+                         f"{table.device}")
+    return n2

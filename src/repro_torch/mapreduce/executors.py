@@ -70,8 +70,12 @@ import torch
 from repro_torch import compat as _compat
 from repro_torch.core.planner import PlanPartition, partition_plan
 from repro_torch.kernels.pairwise.fused_gather_gram import (
+    finish_rect_blocks,
     fused_gather_gram,
     fused_gather_gram_rect,
+)
+from repro_torch.kernels.pairwise.fused_gather_gram import (
+    rect_table_norms as _table_norms,
 )
 from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
@@ -442,13 +446,10 @@ class BucketedExecutor(Executor):
 # ---------------------------------------------------------------------------
 # fused (gather+Gram kernel) executor
 # ---------------------------------------------------------------------------
-def _take_masked(v, idx, mask):
-    """``v[idx]`` with masked slots 0; a masked slot's index is not read."""
-    return torch.where(mask, v[torch.where(mask, idx, 0).long()], 0.0)
-
-
-# the rect launches' counters: every launch with a metric finishes in
-# torch, and computes R Lx Ly entries, of which the valid pairs are wanted
+# the rect launches' counters: the executors that finish rect blocks in
+# torch after a raw launch count each bucket (the fused executor's launches
+# count where their finish ran, in the wrapper), and every launch computes
+# R Lx Ly entries, of which the valid pairs are wanted
 _RECT_FINISH = _REGISTRY_OBS.counter("fused.finish", where="torch",
                                      shape="rect")
 _RECT_VALID = _REGISTRY_OBS.counter("fused.rect_entries", kind="valid")
@@ -456,30 +457,14 @@ _RECT_COMPUTED = _REGISTRY_OBS.counter("fused.rect_entries", kind="computed")
 
 
 def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
-    """Metric post-processing of a masked rectangular cross-Gram stack.
-
-    Mirrors ``allpairs.block_similarity_x2y``.  Cross blocks carry no Gram
-    diagonal, so per-row squared norms are gathered from the table-level
-    fp32 vectors ``n2x``/``n2y`` (``None`` for ``dot``; masked slots -> 0,
-    matching the zero-masked gathers of the reference path); invalid
-    pairs -> 0.  Counts one bucket in ``fused.finish{where=torch,
-    shape=rect}`` and runs in an obs ``finish`` span with the blocks'
-    ``width`` and ``ywidth``, device-timed on the card."""
+    """The torch finish of a raw rectangular cross-Gram stack
+    (``finish_rect_blocks``, in its ``finish`` span), counted as one bucket
+    in ``fused.finish{where=torch, shape=rect}``: the sharded and coded
+    executors' finish, after their raw launches.  ``n2x``/``n2y`` are
+    ``_table_norms``'; the fused executor finishes through the kernel's
+    wrapper instead."""
     _RECT_FINISH.inc()
-    with _obs_span("finish", device=g.device, width=g.shape[1],
-                   ywidth=g.shape[2]):
-        if metric != "dot":
-            gx = _take_masked(n2x, xidx, xmask)               # (Rb, Lx)
-            gy = _take_masked(n2y, yidx, ymask)               # (Rb, Ly)
-            if metric == "l2":
-                g = gx[:, :, None] + gy[:, None, :] - 2.0 * g
-            elif metric == "cosine":
-                g = g / (torch.sqrt(gx + 1e-9)[:, :, None]
-                         * torch.sqrt(gy + 1e-9)[:, None, :])
-            else:
-                raise ValueError(metric)
-        valid = xmask[:, :, None] & ymask[:, None, :]
-        return torch.where(valid, g, 0.0)
+    return finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric)
 
 
 def _rect_valid_pairs(plan, i: int, rows: slice) -> int:
@@ -506,14 +491,6 @@ def _largest_first(plan, rows) -> list:
         * plan.buckets[i].ywidth))
 
 
-def _table_norms(xt, yt, metric: str):
-    """Per-row fp32 squared norms of both tables (``None`` for ``dot``,
-    which needs none) — what ``_finish_rect_blocks`` gathers."""
-    if metric == "dot":
-        return None, None
-    return xt.float().square().sum(-1), yt.float().square().sum(-1)
-
-
 def _bucket_views(flat: torch.Tensor, arrays) -> list:
     """Each bucket's ``(Rb, Lb, Lb)`` view of ``flat``, one after the other
     from position 1: the layout ``allpairs._pair_source_map`` indexes."""
@@ -523,6 +500,16 @@ def _bucket_views(flat: torch.Tensor, arrays) -> list:
         views.append(flat[base:base + Rb * Lb * Lb].view(Rb, Lb, Lb))
         base += Rb * Lb * Lb
     return views
+
+
+def _rect_bases(shapes) -> list:
+    """Where each ``(Rb, Lx, Ly)`` block of ``shapes`` starts in the vector
+    ``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]``, and its end last:
+    the layout ``allpairs._pair_source_map_rect`` indexes."""
+    bases = [1]
+    for Rb, Lx, Ly in shapes:
+        bases.append(bases[-1] + Rb * Lx * Ly)
+    return bases
 
 
 class FusedExecutor(Executor):
@@ -649,11 +636,15 @@ class FusedExecutor(Executor):
         maps drive ONE launch of the rectangular gather+Gram kernel (with a
         ``mesh``, on this rank's block of the bucket's rows, then ONE
         all-gather), and ONE inverse-shuffle gather assembles the (mx, my)
-        matrix.  Non-Gram reducers fall back to the rect-bucketed path
-        (identical outputs; counted).  ``use_kernel`` is accepted for
-        signature parity.  Each launch counts its entries in
-        ``fused.rect_entries{kind=valid|computed}``; the assembly runs in
-        an ``assemble`` span."""
+        matrix.  Each launch finishes the metric (in the kernel's epilogue
+        for buckets up to 32 wide a side, see ``fused_gather_gram_rect``);
+        without a process group it writes straight into its bucket's slice
+        of ONE vector ``[0.0, blocks_0.ravel(), ...]`` in bucket order,
+        which the assembly gathers from with no copy.  Non-Gram reducers
+        fall back to the rect-bucketed path (identical outputs; counted).
+        ``use_kernel`` is accepted for signature parity.  Each launch
+        counts its entries in ``fused.rect_entries{kind=valid|computed}``;
+        the assembly runs in an ``assemble`` span."""
         from .allpairs import (
             _pair_source_map_rect,
             assemble_x2y_matrix_bucketed,
@@ -678,32 +669,43 @@ class FusedExecutor(Executor):
         arrays = uploaded("x2y-buckets", plan, xt,
                           lambda dev: rect_bucket_arrays(plan, dev),
                           ytable=yt)
-        # the largest block first, and the norms, the ledger and the source
-        # map after its launch: the card starts on its longest kernel while
-        # the host does the rest (small buckets first, and the host's
-        # bookkeeping before any launch, kept the card waiting on the host)
-        local, norms = [None] * len(arrays), None
+        shapes = [(r.stop - r.start, b.width, b.ywidth)
+                  for r, b in zip(mine, plan.buckets)]
+        bases = _rect_bases(shapes)
+        flat = (torch.empty(bases[-1], dtype=torch.float32,
+                            device=xt.device) if group is None else None)
+        # the epilogue reads the tables' norms: two small reductions first
+        norms = _table_norms(xt, yt, metric)
+        # the largest block first, and each later block's view, the ledger
+        # and the source map after its launch: the card starts on its
+        # longest kernel while the host does the rest (small buckets first,
+        # and the host's bookkeeping before any launch, kept the card
+        # waiting on the host)
+        local = [None] * len(arrays)
         for i in _largest_first(plan, mine):
             r = mine[i]
             s = [a[r] for a in arrays[i][:4]]
             _RECT_VALID.inc(_rect_valid_pairs(plan, i, r))
             _RECT_COMPUTED.inc(s[0].numel() * s[2].shape[1])
-            g = fused_gather_gram_rect(xt, yt, *s)
-            if norms is None:
-                norms = _table_norms(xt, yt, metric)
-            local[i] = _finish_rect_blocks(g, *s, *norms, metric)
-            del g
+            out = (None if flat is None else
+                   flat[bases[i]:bases[i + 1]].view(shapes[i]))
+            local[i] = fused_gather_gram_rect(xt, yt, *s, metric, out,
+                                              norms)
+        if flat is not None:
+            flat[:1].zero_()        # after the launches, off the prologue
         self._reconcile(plan, "x2y", xt,
                         measured_slots=_bucket_valid_slots(plan))
         srcmap = uploaded(
             f"srcmap-rect:{mx}x{my}", plan, xt,
             lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
                                         device=dev).long(), ytable=yt)
-        blocks = all_ranks(local, group, S)
+        blocks = None if group is None else all_ranks(local, group, S)
         # rectangular inverse shuffle: ONE assembly gather through the
         # host-built source map (slot 0 -> 0.0 for uncovered cells)
         with _obs_span("assemble", device=xt.device):
-            return _with_zero_slot(blocks)[srcmap]
+            if blocks is not None:
+                flat = _with_zero_slot(blocks)
+            return flat[srcmap]
 
 
 # ---------------------------------------------------------------------------

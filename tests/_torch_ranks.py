@@ -98,7 +98,7 @@ class KernelSpy:
         """Per kernel: launches and the largest difference from the plain
         version on the same operands (asserted within fp32 tolerance)."""
         plain = {"fused_gather_gram": _square_plain,
-                 "fused_gather_gram_rect": fgg.fused_gather_gram_rect_ref}
+                 "fused_gather_gram_rect": _rect_plain}
         out = {}
         for name, args, got in self.calls:
             want = plain[name](*args)
@@ -114,6 +114,18 @@ def _square_plain(x, idx, mask, metric=None, out=None):
     (``out``, where the kernel wrote, is not needed)."""
     g = fgg.fused_gather_gram_ref(x, idx, mask)
     return g if metric is None else fgg.finish_fused_blocks(g, mask, metric)
+
+
+def _rect_plain(x, y, xidx, xmask, yidx, ymask, metric=None, out=None,
+                norms=None):
+    """The rect kernel's plain version, its metric finished in torch
+    (``out``, where the kernel wrote, is not needed)."""
+    g = fgg.fused_gather_gram_rect_ref(x, y, xidx, xmask, yidx, ymask)
+    if metric is None:
+        return g
+    return fgg.finish_rect_blocks(
+        g, xidx, xmask.bool(), yidx, ymask.bool(),
+        *(norms or fgg.rect_table_norms(x, y, metric)), metric)
 
 
 def cuda_paths(rank, world, w, x, wx, wy, xx, yy):

@@ -28,7 +28,11 @@ variant on the same inputs in one process:
   kept where few warps fit on an SM (``MIN_WARPS``), on every bucket of
   chip_smoke's four rect paths (X2Y skew and balanced, the two serving
   blocks), fp32 and bf16, each variant held against the plain version and
-  timed A B B A beside the committed one.
+  timed A B B A beside the committed one; and ``rect_finished``, the
+  committed kernel storing cosine similarities from its epilogue, held
+  against the plain version finished in torch and timed against the raw
+  store on the buckets it takes (at most 32 wide a side;
+  ``rect_on_finished`` is the raw store's time on those).
 
 Run from the repository root on a machine with a card and nvcc::
 
@@ -420,6 +424,7 @@ def part_rect(libs) -> dict:
     from repro_torch.mapreduce.engine import rect_bucket_arrays
     others = [n for n in VARIANTS if n.startswith("rect_")]
     fns = {n: entry(libs, n, fgg._RECT_ARGS) for n in ["rect", *others]}
+    cosine = fgg.METRICS["cosine"]
     stream = torch.cuda.current_stream().cuda_stream
     res = {}
     for path, x, y, plan in rect_paths():
@@ -427,43 +432,67 @@ def part_rect(libs) -> dict:
             xt, yt = x.to(dtype), y.to(dtype)
             key = f"{path}_{str(dtype).split('.')[1]}"
             tot = {}
+            n2 = fgg.rect_table_norms(xt, yt, "cosine")
             for b, arr in zip(plan.buckets, rect_bucket_arrays(plan,
                                                                x.device)):
                 xi, xm, yi, ym = arr[:4]
                 out = torch.empty((b.R, b.width, b.ywidth), device="cuda")
                 want = fgg.fused_gather_gram_rect_ref(xt, yt, xi, xm, yi, ym)
-                args = (xt.data_ptr(), yt.data_ptr(),
-                        int(dtype == torch.bfloat16), xi.data_ptr(),
-                        xm.view(torch.uint8).data_ptr(), yi.data_ptr(),
-                        ym.view(torch.uint8).data_ptr(), out.data_ptr(), b.R,
-                        b.width, b.ywidth, xt.shape[1], xt.shape[0],
-                        yt.shape[0], stream)
+
+                def args(o, metric=0, norms=(None, None)):
+                    return (xt.data_ptr(), yt.data_ptr(),
+                            int(dtype == torch.bfloat16), xi.data_ptr(),
+                            xm.view(torch.uint8).data_ptr(), yi.data_ptr(),
+                            ym.view(torch.uint8).data_ptr(), o.data_ptr(),
+                            b.R, b.width, b.ywidth, xt.shape[1],
+                            xt.shape[0], yt.shape[0], metric,
+                            *(n.data_ptr() if n is not None else None
+                              for n in norms), stream)
+                raw = args(out)
                 calls = {
-                    n: (lambda f=f, n=n: checked(f(*args), f"rect {n}"))
+                    n: (lambda f=f, n=n: checked(f(*raw), f"rect {n}"))
                     for n, f in fns.items()}
+                checks = {n: (out, want) for n in calls}
+                timed = list(others)
+                if max(b.width, b.ywidth) <= fgg.FINISH_MAX_WIDTH:
+                    fin_out = torch.empty_like(out)
+                    fin = args(fin_out, cosine, n2)
+                    calls["rect_finished"] = lambda fin=fin: checked(
+                        fns["rect"](*fin), "rect finished")
+                    checks["rect_finished"] = (
+                        fin_out, fgg.finish_rect_blocks(want, xi, xm, yi, ym,
+                                                        *n2, "cosine"))
+                    timed.append("rect_finished")
                 for name, fn in calls.items():
-                    out.fill_(float("nan"))
+                    got, ref = checks[name]
+                    got.fill_(float("nan"))
                     fn()
                     torch.cuda.synchronize()
                     torch.testing.assert_close(
-                        out, want, **(cs.FP32 if dtype == torch.float32
-                                      else cs.BF16),
+                        got, ref, **(cs.FP32 if dtype == torch.float32
+                                     else cs.BF16),
                         msg=lambda m: f"{name} {key} {b.width}x{b.ywidth}: "
                                       f"{m}")
                 row = {}
-                for other in others:
+                for other in timed:
                     for name in ("rect", other, other, "rect"):
                         row.setdefault(name, 0.0)
                         row[name] += cs.time_cuda(calls[name], 10) / (
-                            2 * len(others) if name == "rect" else 2)
+                            2 * len(timed) if name == "rect" else 2)
+                if "rect_finished" in row:
+                    row["rect_on_finished"] = row["rect"]
                 for k, v in row.items():
                     tot[k] = tot.get(k, 0.0) + v
                 cs.log(f"rect {key} bucket {b.width}x{b.ywidth} R={b.R}: "
                        + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
-                del out, want
+                del out, want, checks
             cs.log(f"rect {key} request: " + ", ".join(
                 f"{k} {v:.4f} ms ({v / tot['rect']:.3f})"
                 for k, v in tot.items()))
+            if "rect_finished" in tot:
+                cs.log(f"rect {key} finished / raw on the buckets the "
+                       f"epilogue takes: {tot['rect_finished']:.4f} / "
+                       f"{tot['rect_on_finished']:.4f} ms")
             res[key] = tot
     return res
 
