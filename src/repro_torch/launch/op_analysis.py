@@ -263,6 +263,12 @@ _SCRATCH = {
 }
 
 
+def _address(st) -> int:
+    """What the counter knows a live storage by: the address of its
+    ``StorageImpl``, which a later storage may take once it is freed."""
+    return st._cdata
+
+
 class _Block:
     """One counted storage: its bytes (times the trips of the loops that
     kept it) while ``live``."""
@@ -326,12 +332,12 @@ class OpCounter(TorchDispatchMode):
             if not self._mine(o):
                 continue
             st = o.untyped_storage()
-            key = st._cdata
+            key = _address(st)
             if key in self._blocks:
                 continue
             if inputs is None:
-                inputs = {a._cdata if isinstance(a, torch.UntypedStorage)
-                          else a.untyped_storage()._cdata
+                inputs = {_address(a if isinstance(a, torch.UntypedStorage)
+                                   else a.untyped_storage())
                           for a in tree_flatten((args, kwargs))[0]
                           if isinstance(a, torch.UntypedStorage)
                           or self._mine(a)}
@@ -341,8 +347,8 @@ class OpCounter(TorchDispatchMode):
 
     def _add(self, st, nbytes: int) -> None:
         block = _Block(nbytes)
-        self._blocks[st._cdata] = block
-        weakref.finalize(st, self._free, st._cdata, block)
+        self._blocks[_address(st)] = block
+        weakref.finalize(st, self._free, _address(st), block)
         for frame in self._frames:
             frame[0].append(block)
         self.live += nbytes
@@ -358,7 +364,7 @@ class OpCounter(TorchDispatchMode):
     def _forget(self, t) -> None:
         if not self._mine(t):
             return
-        block = self._blocks.get(t.untyped_storage()._cdata)
+        block = self._blocks.get(_address(t.untyped_storage()))
         if block is not None and block.live:
             block.live = False          # stays in _blocks: not new again
             self.live -= block.nbytes
@@ -369,7 +375,7 @@ class OpCounter(TorchDispatchMode):
         if after == before:
             return
         st = t.untyped_storage()
-        block = self._blocks.get(st._cdata)
+        block = self._blocks.get(_address(st))
         if block is None:               # an argument's storage grew
             if after > before:
                 self._add(st, after - before)

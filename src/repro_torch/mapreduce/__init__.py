@@ -16,15 +16,17 @@ executors run a plan over a ``torch.distributed`` process group
 """
 
 from .allpairs import (
-    assemble_pair_matrix,
-    assemble_pair_matrix_bucketed,
-    assemble_x2y_matrix_bucketed,
     block_similarity,
     block_similarity_x2y,
     pairwise_similarity,
     pairwise_similarity_block,
     some_pairs_similarity,
     x2y_similarity,
+)
+from .assembly import (
+    assemble_pair_matrix,
+    assemble_pair_matrix_bucketed,
+    assemble_x2y_matrix_bucketed,
 )
 from .engine import (
     FUSED_STATS,

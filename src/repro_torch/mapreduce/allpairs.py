@@ -19,9 +19,9 @@ reducers compute the pairwise block; results land in the output matrix:
   through a some-pairs schema (``plan_some_pairs``), masked to the
   required pairs.
 
-The streaming executor (``repro_torch.stream``) patches a maintained matrix
-with the same max-scatter (``_scatter_blocks``, ``_scatter_blocks_x2y``)
-and finish (``_finish_pair_matrix``, ``_finish_x2y_matrix``) as assembly.
+The assembly of every executor (the block vector, its source maps, the
+bucketed max-scatter) lives in ``assembly``, below the executors; the
+``assemble_*`` names are re-exported here.
 """
 
 from __future__ import annotations
@@ -40,8 +40,10 @@ from repro_torch.obs import span as _obs_span
 
 from repro_torch.compat import shard_group
 
-from .engine import (ReducerPlan, SparsePlan, _as_tables, as_table,
-                     build_plan, build_sparse_plan, build_x2y_plan)
+from .assembly import (assemble_pair_matrix, assemble_pair_matrix_bucketed,
+                       assemble_x2y_matrix_bucketed)
+from .engine import (SparsePlan, _as_tables, as_table, build_plan,
+                     build_sparse_plan, build_x2y_plan, plan_memo)
 from .executors import get_executor
 
 __all__ = [
@@ -144,148 +146,19 @@ def _plan_for(schema, *, pad_reducers_to: int, pad_slots_to: int):
     skips the host plan build.  A ``PLAN_CACHE`` hit does not: ``plan_a2a``
     wraps every hit in a new schema (``core.planner._remap_schema``), so
     each planned request builds its plan anew."""
-    key = (pad_reducers_to, pad_slots_to)
-    cache = schema.__dict__.setdefault("_reducer_plan_cache", {})
-    plan = cache.get(key)
-    if plan is None:
-        plan = build_plan(schema, pad_reducers_to=pad_reducers_to,
-                          pad_slots_to=pad_slots_to)
-        cache[key] = plan
-    return plan
+    return plan_memo(schema, "_reducer_plan_cache", lambda: build_plan(
+        schema, pad_reducers_to=pad_reducers_to, pad_slots_to=pad_slots_to),
+        (pad_reducers_to, pad_slots_to))
 
 
 def _x2y_plan_for(schema, num_x: int, *, pad_reducers_to: int,
                   pad_slots_to: int):
     """``build_x2y_plan`` memoized on the schema object (the same contract
     as ``_plan_for``: reused for the same schema object only)."""
-    key = ("x2y", num_x, pad_reducers_to, pad_slots_to)
-    cache = schema.__dict__.setdefault("_reducer_plan_cache", {})
-    plan = cache.get(key)
-    if plan is None:
-        plan = build_x2y_plan(schema, num_x,
-                              pad_reducers_to=pad_reducers_to,
-                              pad_slots_to=pad_slots_to)
-        cache[key] = plan
-    return plan
-
-
-def _check_srcmap_size(plan: ReducerPlan, entries_of) -> None:
-    """Source-map positions are int32 as in the reference, so the bucket
-    blocks' total entries must stay below 2**31."""
-    total = 1 + sum(entries_of(b) for b in plan.buckets)
-    if total > np.iinfo(np.int32).max:
-        raise OverflowError(
-            f"{total} block entries overflow the int32 source map")
-
-
-def _pair_source_map_rect(plan: ReducerPlan, mx: int,
-                          my: int) -> np.ndarray:
-    """Rectangular inverse-shuffle map: (mx, my) int32 positions into the
-    concatenation ``[0.0, blocks_0.ravel(), ...]`` of per-bucket cross-Gram
-    stacks.  Like :func:`_pair_source_map` with decoupled axes — rows come
-    from each bucket's X-side ids, columns from its Y-side ids, and there
-    is no diagonal to zero (an (x, y) pair is never a self-pair).
-    Uncovered cells point at slot 0 (-> 0.0).  Cached on the plan; a build
-    runs in a ``plan.srcmap`` span."""
-    cached = plan.__dict__.get("_pair_srcmap_rect")
-    if cached is not None and cached[0] == (mx, my):
-        return cached[1]
-    _check_srcmap_size(plan, lambda b: b.R * b.width * b.ywidth)
-    with _obs_span("plan.srcmap", mx=mx, my=my):
-        srcmap = np.zeros((mx, my), np.int32)
-        base = 1
-        for b in plan.buckets:
-            Rb, Lx = b.idx.shape
-            Ly = b.yidx.shape[1]
-            rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lx, Ly))
-            cols = np.broadcast_to(b.yidx[:, None, :], (Rb, Lx, Ly))
-            valid = b.mask[:, :, None] & b.ymask[:, None, :]
-            pos = np.arange(base, base + Rb * Lx * Ly,
-                            dtype=np.int64).reshape(Rb, Lx, Ly)
-            srcmap[rows[valid], cols[valid]] = pos[valid]
-            base += Rb * Lx * Ly
-    object.__setattr__(plan, "_pair_srcmap_rect", ((mx, my), srcmap))
-    return srcmap
-
-
-def assemble_x2y_matrix_bucketed(per_bucket, shape: tuple[int, int], *,
-                                 device=None):
-    """Scatter per-bucket (Rb, Lx, Ly[, c]) cross blocks into the global
-    (mx, my[, c]) output.
-
-    ``per_bucket`` is ``run_reducers_x2y_bucketed(..., combine='buckets')``
-    output (the dense executor passes its whole plan as one "bucket").
-    Invalid slots drop into a scratch row (duplicate covered cells agree,
-    so a plain ``index_put_`` is deterministic where it matters), which
-    also handles payload-carrying blocks — the skew join's (Lx, Ly, dx+dy)
-    concat outputs assemble through the same path as similarity
-    matrices.  Uncovered cells are 0 (no diagonal to zero: an (x, y) pair
-    is never a self-pair)."""
-    mx, my = shape
-    if not per_bucket:
-        return torch.zeros((mx, my), dtype=torch.float32, device=device)
-    out = None
-    for b, blocks in per_bucket:
-        trailing = tuple(blocks.shape[3:])
-        dev = blocks.device
-        if out is None:
-            out = torch.zeros((mx + 1, max(my, 1)) + trailing,
-                              dtype=blocks.dtype, device=dev)
-        xidx = torch.as_tensor(b.idx, device=dev).long()
-        yidx = torch.as_tensor(b.yidx, device=dev).long()
-        valid = (torch.as_tensor(b.mask, device=dev)[:, :, None]
-                 & torch.as_tensor(b.ymask, device=dev)[:, None, :])
-        rows = torch.where(valid, xidx[:, :, None], mx)  # invalid -> scratch
-        cols = torch.where(valid, yidx[:, None, :], 0)
-        out[rows.reshape(-1), cols.reshape(-1)] = \
-            blocks.reshape((-1,) + trailing)
-    return out[:mx, :my]
-
-
-def _pair_source_map(plan: ReducerPlan, m: int) -> np.ndarray:
-    """Inverse-shuffle map for fused assembly: (m, m) int32 positions into
-    the concatenation ``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]`` of
-    per-bucket Gram stacks (bucket order = ``plan.buckets``).
-
-    A pair covered by several reducers keeps one (deterministic) source —
-    duplicate block values agree, so assembly is a gather instead of a
-    max-combine scatter.  Uncovered cells and the diagonal point at slot 0
-    (-> 0.0).  Cached on the plan.  Positions are int32 as in the
-    reference, so the total Gram entries must stay below 2**31."""
-    cached = plan.__dict__.get("_pair_srcmap")
-    if cached is not None and cached[0] == m:
-        return cached[1]
-    _check_srcmap_size(plan, lambda b: b.R * b.width * b.width)
-    with _obs_span("plan.srcmap", m=m):
-        srcmap = np.zeros((m, m), np.int32)
-        base = 1
-        for b in plan.buckets:
-            Rb, Lb = b.idx.shape
-            rows = np.broadcast_to(b.idx[:, :, None], (Rb, Lb, Lb))
-            cols = np.broadcast_to(b.idx[:, None, :], (Rb, Lb, Lb))
-            valid = b.mask[:, :, None] & b.mask[:, None, :]
-            pos = np.arange(base, base + Rb * Lb * Lb,
-                            dtype=np.int64).reshape(Rb, Lb, Lb)
-            srcmap[rows[valid], cols[valid]] = pos[valid]
-            base += Rb * Lb * Lb
-        np.fill_diagonal(srcmap, 0)
-    object.__setattr__(plan, "_pair_srcmap", (m, srcmap))
-    return srcmap
-
-
-def _assemble_from_srcmap(per_bucket, srcmap: torch.Tensor, flat=None):
-    """Fused assembly: gather the (m, m) matrix from the concatenated
-    bucket blocks through the inverse-shuffle map (int64, on device).
-    ``flat``, when the blocks were written into that concatenation
-    ``[0.0, blocks_0.ravel(), ...]`` in place, is gathered from as it is;
-    otherwise the blocks are concatenated first."""
-    with _obs_span("assemble", device=srcmap.device):
-        if flat is None:
-            vals = [torch.zeros(1, dtype=torch.float32,
-                                device=srcmap.device)]
-            vals += [g.reshape(-1) for _, g in per_bucket]
-            flat = torch.cat(vals)
-        return flat[srcmap]
+    return plan_memo(schema, "_reducer_plan_cache", lambda: build_x2y_plan(
+        schema, num_x, pad_reducers_to=pad_reducers_to,
+        pad_slots_to=pad_slots_to),
+        ("x2y", num_x, pad_reducers_to, pad_slots_to))
 
 
 def _run_and_assemble(x, plan, fn, m, mesh, executor,
@@ -348,11 +221,8 @@ def _sparse_plan_for(schema) -> SparsePlan:
     """Memoized CSR plan for a schema (one sparse plan per schema object,
     shared across block requests so executor-side source maps and the
     sub-plan LRU persist)."""
-    cached = schema.__dict__.get("_sparse_plan")
-    if cached is None:
-        cached = build_sparse_plan(schema)
-        schema.__dict__["_sparse_plan"] = cached
-    return cached
+    return plan_memo(schema, "_sparse_plan",
+                     lambda: build_sparse_plan(schema))
 
 
 def pairwise_similarity_block(
@@ -493,83 +363,3 @@ def x2y_similarity(
                 (x, y), plan, fn, (mx, my), mesh=mesh,
                 use_kernel=use_kernel, device=x.device)
     return sims, plan, schema
-
-
-def _scatter_blocks(out: torch.Tensor, blocks: torch.Tensor,
-                    idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """max-scatter (R, L, L) reducer blocks into the running (m, m) matrix
-    (initialized to -inf), in place.  A pair may meet at several reducers;
-    values agree, so `max` combine is deterministic.  A masked slot's index
-    is never read: its -inf entries land on cell (0, 0) instead."""
-    m = out.shape[0]
-    idx = torch.where(mask, idx, 0).long()
-    flat = (idx[:, :, None] * m + idx[:, None, :]).reshape(-1)
-    valid = mask[:, :, None] & mask[:, None, :]
-    vals = torch.where(valid, blocks, float("-inf")).reshape(-1)
-    out.view(-1).scatter_reduce_(0, flat, vals.to(out.dtype), reduce="amax")
-    return out
-
-
-def _finish_pair_matrix(out: torch.Tensor) -> torch.Tensor:
-    """Uncovered cells -> 0 and the diagonal multiplied by 0 (no self-pairs
-    in A2A), as the reference multiplies by ``1 - eye``: a non-finite
-    self-product stays NaN there."""
-    out = torch.where(torch.isneginf(out), 0.0, out)
-    out.diagonal().mul_(0.0)
-    return out
-
-
-def _scatter_blocks_x2y(out: torch.Tensor, blocks: torch.Tensor,
-                        xidx: torch.Tensor, xmask: torch.Tensor,
-                        yidx: torch.Tensor,
-                        ymask: torch.Tensor) -> torch.Tensor:
-    """max-scatter (R, Lx, Ly) cross blocks into the running (mx, my)
-    matrix (initialized to -inf), in place; duplicates agree, so max is
-    deterministic.  The streaming patch relies on the max-combine (clean
-    cells keep their value after -inf invalidation).  A masked slot's index
-    is never read: its -inf entries land on cell (0, 0), a real pair that
-    amax leaves as it was."""
-    my = out.shape[1]
-    xidx = torch.where(xmask, xidx, 0).long()
-    yidx = torch.where(ymask, yidx, 0).long()
-    flat = (xidx[:, :, None] * my + yidx[:, None, :]).reshape(-1)
-    valid = xmask[:, :, None] & ymask[:, None, :]
-    vals = torch.where(valid, blocks, float("-inf")).reshape(-1)
-    out.view(-1).scatter_reduce_(0, flat, vals.to(out.dtype), reduce="amax")
-    return out
-
-
-def _finish_x2y_matrix(out: torch.Tensor) -> torch.Tensor:
-    """Uncovered / invalidated cells -> 0 (no diagonal to zero: an (x, y)
-    pair is never a self-pair)."""
-    return torch.where(torch.isneginf(out), 0.0, out)
-
-
-def assemble_pair_matrix(blocks: torch.Tensor, plan: ReducerPlan, m: int):
-    """Scatter per-reducer (L, L) blocks into the global (m, m) matrix.
-
-    Diagonal is zeroed (no self-pairs in A2A)."""
-    out = torch.full((m, m), float("-inf"), dtype=blocks.dtype,
-                     device=blocks.device)
-    _scatter_blocks(out, blocks,
-                    torch.as_tensor(plan.idx, device=blocks.device),
-                    torch.as_tensor(plan.mask, device=blocks.device))
-    return _finish_pair_matrix(out)
-
-
-def assemble_pair_matrix_bucketed(per_bucket, m: int, *, device=None):
-    """Scatter per-bucket (Rb, Lb, Lb) blocks into the global (m, m) matrix.
-
-    ``per_bucket`` is ``run_reducers_bucketed(..., combine='buckets')``
-    output.  Each bucket scatters at its own width — no block is padded to
-    the dense L.  Padding rows (all-masked) contribute nothing."""
-    if not per_bucket:
-        return torch.zeros((m, m), dtype=torch.float32, device=device)
-    first = per_bucket[0][1]
-    out = torch.full((m, m), float("-inf"), dtype=first.dtype,
-                     device=first.device)
-    for b, blocks in per_bucket:
-        _scatter_blocks(out, blocks,
-                        torch.as_tensor(b.idx, device=blocks.device),
-                        torch.as_tensor(b.mask, device=blocks.device))
-    return _finish_pair_matrix(out)

@@ -486,10 +486,7 @@ def block_subplan(sparse: SparsePlan, i0: int, i1: int, j0: int, j1: int,
             f"block [{i0}:{i1}) x [{j0}:{j1}) outside "
             f"m={sparse.num_inputs}")
     key = (i0, i1, j0, j1, pad_reducers_to, pad_slots_to, max_buckets)
-    cache = sparse.__dict__.get("_block_cache")
-    if cache is None:
-        cache = OrderedDict()
-        object.__setattr__(sparse, "_block_cache", cache)
+    cache = plan_memo(sparse, "_block_cache", OrderedDict)
     if key in cache:
         cache.move_to_end(key)
         _BLOCK_CACHE_STATS["hits"] += 1
@@ -757,13 +754,33 @@ def _drop_plan(tok: int) -> None:
         _JIT_SHAPES.pop(key, None)
 
 
+def plan_memo(obj, attr: str, build: Callable, key=None, *,
+              keep_last: bool = False):
+    """``build()``, memoized on ``obj`` (a plan or schema; frozen ones are
+    set through ``object.__setattr__``).  Without a ``key`` the value
+    itself is kept as ``obj.<attr>``; with one, ``obj.<attr>`` is a dict of
+    values by key, which holds only the last key's with ``keep_last``."""
+    if key is None:
+        value = obj.__dict__.get(attr)
+        if value is None:
+            value = build()
+            object.__setattr__(obj, attr, value)
+        return value
+    cache = obj.__dict__.get(attr)
+    if cache is None or (keep_last and key not in cache):
+        cache = {}
+        object.__setattr__(obj, attr, cache)
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
 def _plan_token(plan) -> int:
-    tok = plan.__dict__.get("_upload_token")
-    if tok is None:
+    def new() -> int:
         tok = next(_PLAN_TOKENS)
-        object.__setattr__(plan, "_upload_token", tok)
         weakref.finalize(plan, _drop_plan, tok)
-    return tok
+        return tok
+    return plan_memo(plan, "_upload_token", new)
 
 
 def _masked_range(pairs) -> tuple[int, int]:
@@ -785,15 +802,15 @@ def _check_indices(plan, mx: int, my: Optional[int] = None) -> None:
     slots are never gathered, so whatever they hold is not checked.  The
     device gathers cannot raise, so a plan built elsewhere
     (``plan_from_arrays``) is checked here, once per plan (cached)."""
-    ranges = plan.__dict__.get("_index_range")
-    if ranges is None:
+    def build() -> list:
         ranges = [_masked_range([(plan.idx, plan.mask)]
                                 + [(b.idx, b.mask) for b in plan.buckets])]
         if plan.is_rect:
             ranges.append(_masked_range(
                 [(plan.yidx, plan.ymask)]
                 + [(b.yidx, b.ymask) for b in plan.buckets]))
-        object.__setattr__(plan, "_index_range", ranges)
+        return ranges
+    ranges = plan_memo(plan, "_index_range", build)
     sides = [("", mx)] + ([("Y-side ", mx if my is None else my)]
                           if plan.is_rect else [])
     for (side, m), (lo, hi) in zip(sides, ranges):

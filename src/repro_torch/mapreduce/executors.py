@@ -28,9 +28,10 @@ Registered executors:
                 inverse-shuffle source map.  The square kernel finishes
                 the metric in its epilogue for buckets up to 32 wide and
                 writes each bucket into its slice of the vector the
-                assembly gathers from; wider buckets, the CPU and X2Y
-                finish in torch.  Non-Gram reducers fall back to
-                bucketed, counted.
+                assembly gathers from (``assembly``); the rect kernel
+                does the same up to 32 x 32.  Wider buckets and the CPU
+                finish in torch, in the kernels' wrappers.  Non-Gram
+                reducers fall back to bucketed, counted.
 
 ``sharded``   — shard-balanced execution over a process group (the
                 "mesh", see ``repro_torch.compat``): ``partition_plan``
@@ -70,19 +71,28 @@ import torch
 from repro_torch import compat as _compat
 from repro_torch.core.planner import PlanPartition, partition_plan
 from repro_torch.kernels.pairwise.fused_gather_gram import (
-    finish_rect_blocks,
     fused_gather_gram,
     fused_gather_gram_rect,
-)
-from repro_torch.kernels.pairwise.fused_gather_gram import (
-    rect_table_norms as _table_norms,
+    rect_table_norms,
 )
 from repro_torch.obs import EVENTS as _EVENTS
 from repro_torch.obs import LEDGER as _LEDGER
 from repro_torch.obs import REGISTRY as _REGISTRY_OBS
 from repro_torch.obs import _config as _obs_config
-from repro_torch.obs import span as _obs_span
 
+from .assembly import (
+    BlockLayout,
+    _assemble_from_srcmap,
+    _pair_source_map,
+    _pair_source_map_rect,
+    assemble_pair_matrix,
+    assemble_pair_matrix_bucketed,
+    assemble_x2y_matrix_bucketed,
+    block_layout,
+    check_int32,
+    source_map,
+    with_zero_slot,
+)
 from .engine import (
     ReducerPlan,
     _as_tables,
@@ -90,6 +100,7 @@ from .engine import (
     as_table,
     block_subplan,
     bucket_arrays,
+    plan_memo,
     rank_rows,
     rect_bucket_arrays,
     run_reducers,
@@ -254,29 +265,19 @@ def _row_bytes(table) -> tuple[int, int]:
 def _plan_valid_slots(plan) -> int:
     """Valid gather slots the plan books (X + Y sides for rect plans) —
     the ledger's ``plan_slots`` denominator.  Cached on the plan."""
-    n = plan.__dict__.get("_obs_plan_slots")
-    if n is None:
-        n = int(np.asarray(plan.mask).sum())
-        if plan.ymask is not None:
-            n += int(np.asarray(plan.ymask).sum())
-        object.__setattr__(plan, "_obs_plan_slots", n)
-    return n
+    return plan_memo(plan, "_obs_plan_slots", lambda: int(
+        np.asarray(plan.mask).sum()) + (0 if plan.ymask is None else int(
+            np.asarray(plan.ymask).sum())))
 
 
 def _bucket_valid_slots(plan) -> int:
     """Valid gather slots the bucketed/fused path executes (sum of
     per-bucket masks; padding rows are all-False, so this equals the dense
     mask sum — the 1.0-ratio invariant).  Cached on the plan."""
-    n = plan.__dict__.get("_obs_bucket_slots")
-    if n is None:
-        if plan.buckets:
-            n = sum(int(np.asarray(b.mask).sum())
-                    + (0 if b.ymask is None else int(np.asarray(b.ymask).sum()))
-                    for b in plan.buckets)
-        else:
-            n = _plan_valid_slots(plan)
-        object.__setattr__(plan, "_obs_bucket_slots", n)
-    return n
+    return plan_memo(plan, "_obs_bucket_slots", lambda: sum(
+        int(np.asarray(b.mask).sum())
+        + (0 if b.ymask is None else int(np.asarray(b.ymask).sum()))
+        for b in plan.buckets) if plan.buckets else _plan_valid_slots(plan))
 
 
 def _group_valid_slots(plan, cache_key, groups, count_y: bool) -> int:
@@ -285,44 +286,23 @@ def _group_valid_slots(plan, cache_key, groups, count_y: bool) -> int:
     rows); ``count_y=False`` for the square coded path, where xm and ym
     are the same gather and copies must be counted once.  Cached on the
     plan per (shards, replication, rect) key."""
-    cache = plan.__dict__.get("_obs_group_slots")
-    if cache is None:
-        cache = {}
-        object.__setattr__(plan, "_obs_group_slots", cache)
-    n = cache.get(cache_key)
-    if n is None:
+    def build() -> int:
         n = 0
         for grp in groups:
-            if len(grp) >= 5:
-                n += int(np.asarray(grp[1]).sum())
-                if count_y:
-                    n += int(np.asarray(grp[3]).sum())
-            else:                       # (idx, mask, rows) square stack
-                n += int(np.asarray(grp[1]).sum())
-        cache[cache_key] = n
-    return n
+            n += int(np.asarray(grp[1]).sum())
+            if count_y and len(grp) >= 5:
+                n += int(np.asarray(grp[3]).sum())
+        return n
+    return plan_memo(plan, "_obs_group_slots", build, cache_key)
 
 
 def _group_gram_entries(plan, cache_key, groups) -> int:
     """Gram entries the stacked shard groups produce — what the sharded
     all-gather assembly ships.  Cached on the plan (same cache as the slot
     sums, disjoint keys)."""
-    cache = plan.__dict__.get("_obs_group_slots")
-    if cache is None:
-        cache = {}
-        object.__setattr__(plan, "_obs_group_slots", cache)
-    n = cache.get(cache_key)
-    if n is None:
-        n = 0
-        for grp in groups:
-            if len(grp) >= 5:            # rect: (xi, xm, yi, ym, rows)
-                xi, yi = grp[0], grp[2]
-                n += int(np.prod(xi.shape[:2])) * xi.shape[2] * yi.shape[2]
-            else:                        # square: (idx, mask, rows)
-                i = grp[0]
-                n += int(np.prod(i.shape[:2])) * i.shape[2] ** 2
-        cache[cache_key] = n
-    return n
+    # rect groups are (xi, xm, yi, ym, rows), square ones (idx, mask, rows)
+    return plan_memo(plan, "_obs_group_slots", lambda: sum(
+        int(np.prod(g[0].shape)) * g[-3].shape[2] for g in groups), cache_key)
 
 
 _REGISTRY: dict[str, Executor] = {}
@@ -382,7 +362,6 @@ class DenseExecutor(Executor):
 
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
-        from .allpairs import assemble_pair_matrix
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
@@ -393,7 +372,6 @@ class DenseExecutor(Executor):
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
-        from .allpairs import assemble_x2y_matrix_bucketed
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         self._reconcile(plan, "x2y", xt,
@@ -420,7 +398,6 @@ class BucketedExecutor(Executor):
 
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
-        from .allpairs import assemble_pair_matrix_bucketed
         x = as_table(x, device)
         self._count("calls")
         self._reconcile(plan, "pairs", x,
@@ -431,7 +408,6 @@ class BucketedExecutor(Executor):
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
-        from .allpairs import assemble_x2y_matrix_bucketed
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         self._reconcile(plan, "x2y", xt,
@@ -446,41 +422,21 @@ class BucketedExecutor(Executor):
 # ---------------------------------------------------------------------------
 # fused (gather+Gram kernel) executor
 # ---------------------------------------------------------------------------
-# the rect launches' counters: the executors that finish rect blocks in
-# torch after a raw launch count each bucket (the fused executor's launches
-# count where their finish ran, in the wrapper), and every launch computes
-# R Lx Ly entries, of which the valid pairs are wanted
-_RECT_FINISH = _REGISTRY_OBS.counter("fused.finish", where="torch",
-                                     shape="rect")
+# the fused rect launches' entries: each computes R Lx Ly, of which the
+# valid pairs are wanted (every launch counts where its finish ran in
+# ``fused.finish{shape=rect}``, in the kernel's wrapper)
 _RECT_VALID = _REGISTRY_OBS.counter("fused.rect_entries", kind="valid")
 _RECT_COMPUTED = _REGISTRY_OBS.counter("fused.rect_entries", kind="computed")
-
-
-def _finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric: str):
-    """The torch finish of a raw rectangular cross-Gram stack
-    (``finish_rect_blocks``, in its ``finish`` span), counted as one bucket
-    in ``fused.finish{where=torch, shape=rect}``: the sharded and coded
-    executors' finish, after their raw launches.  ``n2x``/``n2y`` are
-    ``_table_norms``'; the fused executor finishes through the kernel's
-    wrapper instead."""
-    _RECT_FINISH.inc()
-    return finish_rect_blocks(g, xidx, xmask, yidx, ymask, n2x, n2y, metric)
 
 
 def _rect_valid_pairs(plan, i: int, rows: slice) -> int:
     """Valid (x, y) pairs in rows ``rows`` of rect bucket ``i``: over its
     reducers, valid X slots times valid Y slots.  Cached on the plan."""
-    cache = plan.__dict__.get("_rect_valid_pairs")
-    if cache is None:
-        cache = {}
-        object.__setattr__(plan, "_rect_valid_pairs", cache)
-    key = (i, rows.start, rows.stop)
-    n = cache.get(key)
-    if n is None:
-        b = plan.buckets[i]
-        n = cache[key] = int((b.mask[rows].sum(1, dtype=np.int64)
-                              * b.ymask[rows].sum(1, dtype=np.int64)).sum())
-    return n
+    b = plan.buckets[i]
+    return plan_memo(plan, "_rect_valid_pairs", lambda: int((
+        b.mask[rows].sum(1, dtype=np.int64)
+        * b.ymask[rows].sum(1, dtype=np.int64)).sum()),
+        (i, rows.start, rows.stop))
 
 
 def _largest_first(plan, rows) -> list:
@@ -489,27 +445,6 @@ def _largest_first(plan, rows) -> list:
     return sorted(range(len(plan.buckets)), key=lambda i: -(
         (rows[i].stop - rows[i].start) * plan.buckets[i].width
         * plan.buckets[i].ywidth))
-
-
-def _bucket_views(flat: torch.Tensor, arrays) -> list:
-    """Each bucket's ``(Rb, Lb, Lb)`` view of ``flat``, one after the other
-    from position 1: the layout ``allpairs._pair_source_map`` indexes."""
-    views, base = [], 1
-    for idx, _mask, _rows in arrays:
-        Rb, Lb = idx.shape
-        views.append(flat[base:base + Rb * Lb * Lb].view(Rb, Lb, Lb))
-        base += Rb * Lb * Lb
-    return views
-
-
-def _rect_bases(shapes) -> list:
-    """Where each ``(Rb, Lx, Ly)`` block of ``shapes`` starts in the vector
-    ``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]``, and its end last:
-    the layout ``allpairs._pair_source_map_rect`` indexes."""
-    bases = [1]
-    for Rb, Lx, Ly in shapes:
-        bases.append(bases[-1] + Rb * Lx * Ly)
-    return bases
 
 
 class FusedExecutor(Executor):
@@ -545,7 +480,7 @@ class FusedExecutor(Executor):
             postprocess_arg=None):
         """``combine`` follows the bucketed executor ('dense' / 'buckets');
         ``postprocess(per_bucket, postprocess_arg)`` replaces the combine
-        step (allpairs passes its inverse-shuffle assembly).  With a
+        step (``run_pairs`` passes its inverse-shuffle assembly).  With a
         ``mesh``, each rank launches the kernel on its block of every
         bucket's rows and ONE all-gather of the finished blocks gives
         every rank all of them before the combine."""
@@ -595,12 +530,11 @@ class FusedExecutor(Executor):
         # the kernel is called with positional arguments only, so that a
         # wrapper of ``fused_gather_gram`` sees them all in ``*args``
         if group is None:
-            flat = torch.empty(
-                1 + sum(idx.numel() * idx.shape[1] for idx, _, _ in arrays),
-                dtype=torch.float32, device=x.device)
-            blocks = [fused_gather_gram(x, idx, msk, metric, out)
-                      for (idx, msk, _), out in
-                      zip(arrays, _bucket_views(flat, arrays))]
+            layout = block_layout(plan)
+            flat = layout.vector(x.device)
+            blocks = [fused_gather_gram(x, idx, msk, metric,
+                                        layout.view(flat, i))
+                      for i, (idx, msk, _) in enumerate(arrays)]
             flat[:1].zero_()        # after the launches, off the prologue
             return list(zip(arrays, blocks)), flat
         local = [fused_gather_gram(x, idx[r], msk[r], metric)
@@ -611,7 +545,6 @@ class FusedExecutor(Executor):
                   use_kernel=False, device=None):
         """``use_kernel`` is accepted for signature parity: on a CUDA table
         the fused path always runs the kernel."""
-        from .allpairs import _assemble_from_srcmap, _pair_source_map
         x = as_table(x, device)
         # reconcile here, not in run(): the delegation below must not
         # double-record the request
@@ -638,17 +571,13 @@ class FusedExecutor(Executor):
         all-gather), and ONE inverse-shuffle gather assembles the (mx, my)
         matrix.  Each launch finishes the metric (in the kernel's epilogue
         for buckets up to 32 wide a side, see ``fused_gather_gram_rect``);
-        without a process group it writes straight into its bucket's slice
-        of ONE vector ``[0.0, blocks_0.ravel(), ...]`` in bucket order,
-        which the assembly gathers from with no copy.  Non-Gram reducers
+        without a process group it writes straight into its bucket's view
+        of the plan's block vector (``assembly.block_layout``), which the
+        assembly gathers from with no copy.  Non-Gram reducers
         fall back to the rect-bucketed path (identical outputs; counted).
         ``use_kernel`` is accepted for signature parity.  Each launch
         counts its entries in ``fused.rect_entries{kind=valid|computed}``;
         the assembly runs in an ``assemble`` span."""
-        from .allpairs import (
-            _pair_source_map_rect,
-            assemble_x2y_matrix_bucketed,
-        )
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -669,13 +598,10 @@ class FusedExecutor(Executor):
         arrays = uploaded("x2y-buckets", plan, xt,
                           lambda dev: rect_bucket_arrays(plan, dev),
                           ytable=yt)
-        shapes = [(r.stop - r.start, b.width, b.ywidth)
-                  for r, b in zip(mine, plan.buckets)]
-        bases = _rect_bases(shapes)
-        flat = (torch.empty(bases[-1], dtype=torch.float32,
-                            device=xt.device) if group is None else None)
+        layout = block_layout(plan) if group is None else None
+        flat = None if layout is None else layout.vector(xt.device)
         # the epilogue reads the tables' norms: two small reductions first
-        norms = _table_norms(xt, yt, metric)
+        norms = rect_table_norms(xt, yt, metric)
         # the largest block first, and each later block's view, the ledger
         # and the source map after its launch: the card starts on its
         # longest kernel while the host does the rest (small buckets first,
@@ -687,8 +613,7 @@ class FusedExecutor(Executor):
             s = [a[r] for a in arrays[i][:4]]
             _RECT_VALID.inc(_rect_valid_pairs(plan, i, r))
             _RECT_COMPUTED.inc(s[0].numel() * s[2].shape[1])
-            out = (None if flat is None else
-                   flat[bases[i]:bases[i + 1]].view(shapes[i]))
+            out = None if flat is None else layout.view(flat, i)
             local[i] = fused_gather_gram_rect(xt, yt, *s, metric, out,
                                               norms)
         if flat is not None:
@@ -699,13 +624,11 @@ class FusedExecutor(Executor):
             f"srcmap-rect:{mx}x{my}", plan, xt,
             lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
                                         device=dev).long(), ytable=yt)
-        blocks = None if group is None else all_ranks(local, group, S)
         # rectangular inverse shuffle: ONE assembly gather through the
         # host-built source map (slot 0 -> 0.0 for uncovered cells)
-        with _obs_span("assemble", device=xt.device):
-            if blocks is not None:
-                flat = _with_zero_slot(blocks)
-            return flat[srcmap]
+        per_bucket = (None if group is None else
+                      list(zip(arrays, all_ranks(local, group, S))))
+        return _assemble_from_srcmap(per_bucket, srcmap, flat)
 
 
 # ---------------------------------------------------------------------------
@@ -767,26 +690,18 @@ def _stacked_groups(plan: ReducerPlan, part: PlanPartition,
     return groups
 
 
+def _flat_stack(a: np.ndarray) -> np.ndarray:
+    """An ``(S, Rw, w)`` stacked slot array as ``(S * Rw, w)`` rows."""
+    return a.reshape(-1, a.shape[-1])
+
+
 def _sharded_srcmap(groups, m: int) -> np.ndarray:
     """Inverse-shuffle map for the cross-shard assembly gather: (m, m)
     int32 positions into ``[0.0, group_0.ravel(), group_1.ravel(), ...]``
     of the stacked per-width Gram outputs (each ``(S, Rw, w, w)``).
     Uncovered cells and the diagonal point at slot 0 (-> 0.0)."""
-    srcmap = np.zeros((m, m), np.int32)
-    base = 1
-    for idx, mask, _rows in groups:
-        S, Rw, w = idx.shape
-        flat_idx = idx.reshape(S * Rw, w)
-        flat_mask = mask.reshape(S * Rw, w)
-        rows = np.broadcast_to(flat_idx[:, :, None], (S * Rw, w, w))
-        cols = np.broadcast_to(flat_idx[:, None, :], (S * Rw, w, w))
-        valid = flat_mask[:, :, None] & flat_mask[:, None, :]
-        pos = np.arange(base, base + S * Rw * w * w,
-                        dtype=np.int64).reshape(S * Rw, w, w)
-        srcmap[rows[valid], cols[valid]] = pos[valid]
-        base += S * Rw * w * w
-    np.fill_diagonal(srcmap, 0)
-    return srcmap
+    return source_map(((_flat_stack(i), _flat_stack(k)) * 2
+                       for i, k, _rows in groups), (m, m), True)
 
 
 def _stacked_rect_groups(plan: ReducerPlan, part: PlanPartition,
@@ -848,39 +763,8 @@ def _sharded_rect_srcmap(groups, shape: tuple[int, int]) -> np.ndarray:
     ``[0.0, group_0.ravel(), ...]`` of the stacked per-(wx, wy) cross-Gram
     outputs (each ``(S, Rw, wx, wy)``).  No diagonal to zero — an (x, y)
     pair is never a self-pair; uncovered cells point at slot 0."""
-    mx, my = shape
-    srcmap = np.zeros((mx, my), np.int32)
-    base = 1
-    for xidx, xmask, yidx, ymask, _rows in groups:
-        S, Rw, wx = xidx.shape
-        wy = yidx.shape[2]
-        fx = xidx.reshape(S * Rw, wx)
-        fxm = xmask.reshape(S * Rw, wx)
-        fy = yidx.reshape(S * Rw, wy)
-        fym = ymask.reshape(S * Rw, wy)
-        rows = np.broadcast_to(fx[:, :, None], (S * Rw, wx, wy))
-        cols = np.broadcast_to(fy[:, None, :], (S * Rw, wx, wy))
-        valid = fxm[:, :, None] & fym[:, None, :]
-        pos = np.arange(base, base + S * Rw * wx * wy,
-                        dtype=np.int64).reshape(S * Rw, wx, wy)
-        srcmap[rows[valid], cols[valid]] = pos[valid]
-        base += S * Rw * wx * wy
-    return srcmap
-
-
-def _check_int32(entries: int) -> None:
-    """Source-map positions are int32, as in the reference, so the vector
-    a map indexes must stay below 2**31 entries (the reference wraps; the
-    port raises, as its fused path does)."""
-    if entries > np.iinfo(np.int32).max:
-        raise OverflowError(
-            f"{entries} block entries overflow the int32 source map")
-
-
-def _group_entries(groups) -> int:
-    """Gram entries of stacked groups: ``(S, Rw, wx) x wy`` each (the
-    square stacks' idx is their Y side too)."""
-    return sum(int(np.prod(g[0].shape)) * g[-3].shape[2] for g in groups)
+    return source_map((tuple(_flat_stack(a) for a in g[:4]) for g in groups),
+                      shape, False)
 
 
 def _rank_slices(kind: str, plan, xt, groups, rank: int, n: int, yt=None):
@@ -899,13 +783,6 @@ def _by_group(gathered: torch.Tensor, shapes, S: int) -> list:
     group."""
     per = gathered.view(S, -1).split([r * a * b for r, a, b in shapes], 1)
     return [p.reshape(S, *shape) for p, shape in zip(per, shapes)]
-
-
-def _with_zero_slot(blocks) -> torch.Tensor:
-    """``[0.0, blocks_0.ravel(), blocks_1.ravel(), ...]``: the vector a
-    source map indexes (slot 0 for uncovered cells)."""
-    return torch.cat([blocks[0].new_zeros(1)]
-                     + [b.reshape(-1) for b in blocks])
 
 
 class ShardedExecutor(Executor):
@@ -941,61 +818,26 @@ class ShardedExecutor(Executor):
                   num_shards: int) -> PlanPartition:
         """The plan's LPT partition for ``num_shards`` (cached on the plan
         like the index matrix: a static artifact reused across waves)."""
-        cache = plan.__dict__.get("_shard_partition_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_shard_partition_cache", cache)
-        part = cache.get(num_shards)
-        if part is None:
-            part = partition_plan(plan, num_shards)
-            cache[num_shards] = part
-        return part
+        return plan_memo(plan, "_shard_partition_cache",
+                         lambda: partition_plan(plan, num_shards), num_shards)
 
     def _groups_for(self, plan, part):
-        cache = plan.__dict__.get("_shard_groups_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_shard_groups_cache", cache)
-        groups = cache.get(part.num_shards)
-        if groups is None:
-            groups = _stacked_groups(plan, part)
-            cache[part.num_shards] = groups
-        return groups
+        return plan_memo(plan, "_shard_groups_cache",
+                         lambda: _stacked_groups(plan, part), part.num_shards)
 
     def _srcmap_for(self, plan, groups, num_shards: int, m: int):
-        cache = plan.__dict__.get("_shard_srcmap_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_shard_srcmap_cache", cache)
-        srcmap = cache.get((num_shards, m))
-        if srcmap is None:
-            _check_int32(1 + _group_entries(groups))
-            srcmap = _sharded_srcmap(groups, m)
-            cache[(num_shards, m)] = srcmap
-        return srcmap
+        return plan_memo(plan, "_shard_srcmap_cache",
+                         lambda: _sharded_srcmap(groups, m), (num_shards, m))
 
     def _rect_groups_for(self, plan, part):
-        cache = plan.__dict__.get("_shard_rect_groups_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_shard_rect_groups_cache", cache)
-        groups = cache.get(part.num_shards)
-        if groups is None:
-            groups = _stacked_rect_groups(plan, part)
-            cache[part.num_shards] = groups
-        return groups
+        return plan_memo(plan, "_shard_rect_groups_cache",
+                         lambda: _stacked_rect_groups(plan, part),
+                         part.num_shards)
 
     def _rect_srcmap_for(self, plan, groups, num_shards: int, shape):
-        cache = plan.__dict__.get("_shard_rect_srcmap_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_shard_rect_srcmap_cache", cache)
-        srcmap = cache.get((num_shards, shape))
-        if srcmap is None:
-            _check_int32(1 + _group_entries(groups))
-            srcmap = _sharded_rect_srcmap(groups, shape)
-            cache[(num_shards, shape)] = srcmap
-        return srcmap
+        return plan_memo(plan, "_shard_rect_srcmap_cache",
+                         lambda: _sharded_rect_srcmap(groups, shape),
+                         (num_shards, shape))
 
     def _note(self, part: PlanPartition) -> None:
         self._stats["num_shards"] = part.num_shards
@@ -1040,7 +882,7 @@ class ShardedExecutor(Executor):
                 lambda dev: torch.as_tensor(
                     self._srcmap_for(plan, groups, S, srcmap_m),
                     device=dev).long())
-            return _with_zero_slot(blocks)[srcmap]
+            return with_zero_slot(blocks, x.device)[srcmap]
         # dense combine: scatter the blocks (padded to the dense width)
         # back into reducer order; padding rows drop into row R
         rows = uploaded(f"sharded-rows:{S}", plan, x, lambda dev: tuple(
@@ -1077,7 +919,6 @@ class ShardedExecutor(Executor):
                   use_kernel=False, device=None):
         """``use_kernel`` is accepted for signature parity: on a CUDA table
         every rank runs the kernel."""
-        from .allpairs import assemble_pair_matrix_bucketed
         x = as_table(x, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -1101,7 +942,6 @@ class ShardedExecutor(Executor):
         kernel per (wx, wy) group on every rank's own slice, and assemble
         the (mx, my) matrix from ONE all-gather.  Non-Gram reducers fall
         back to the rect-bucketed path (counted)."""
-        from .allpairs import assemble_x2y_matrix_bucketed
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -1131,10 +971,10 @@ class ShardedExecutor(Executor):
                 assembled_bytes=S * per_shard,
                 meta={"num_shards": S,
                       "assembly_bytes_per_shard": per_shard})
-        n2x, n2y = _table_norms(xt, yt, metric)
+        norms = rect_table_norms(xt, yt, metric)
         local = torch.cat([
-            _finish_rect_blocks(fused_gather_gram_rect(xt, yt, *s), *s,
-                                n2x, n2y, metric).reshape(-1)
+            fused_gather_gram_rect(xt, yt, *s, metric, None,
+                                   norms).reshape(-1)
             for s in _rank_slices(f"sharded-x2y:{S}:{rank}", plan, xt,
                                   groups, rank, 4, yt)])
         # ONE cross-rank collective, then the inverse shuffle
@@ -1147,7 +987,7 @@ class ShardedExecutor(Executor):
             lambda dev: torch.as_tensor(
                 self._rect_srcmap_for(plan, groups, S, (mx, my)),
                 device=dev).long(), ytable=yt)
-        return _with_zero_slot(blocks)[srcmap]
+        return with_zero_slot(blocks, xt.device)[srcmap]
 
 
 # ---------------------------------------------------------------------------
@@ -1181,11 +1021,10 @@ def _coded_maps(groups, shape: tuple[int, int], row_block: int,
     """
     mx, my = shape
     S = groups[0][0].shape[0] if groups else 1
-    bases = []
-    Lv = 1
-    for xidx, _xm, yidx, _ym, _rows in groups:
-        bases.append(Lv)
-        Lv += xidx.shape[1] * xidx.shape[2] * yidx.shape[2]
+    # a shard's value vector holds its own (Rw, wx, wy) block of each group
+    bases = BlockLayout((xidx.shape[1], xidx.shape[2], yidx.shape[2])
+                        for xidx, _xm, yidx, _ym, _rows in groups).bases
+    Lv = bases[-1]
 
     # holders: global row -> [(shard, group, slot), ...] (replica set)
     holders: dict[int, list] = {}
@@ -1301,48 +1140,31 @@ class CodedExecutor(ShardedExecutor):
                         replication: Optional[int] = None) -> PlanPartition:
         r = min(self.replication if replication is None else int(replication),
                 num_shards)
-        cache = plan.__dict__.get("_coded_partition_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_coded_partition_cache", cache)
-        part = cache.get((num_shards, r))
-        if part is None:
-            part = partition_plan(plan, num_shards, replication=r)
-            cache[(num_shards, r)] = part
-        return part
+        return plan_memo(
+            plan, "_coded_partition_cache",
+            lambda: partition_plan(plan, num_shards, replication=r),
+            (num_shards, r))
 
     def _coded_groups_for(self, plan, part, rect: bool):
-        cache = plan.__dict__.get("_coded_groups_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_coded_groups_cache", cache)
-        key = (part.num_shards, part.replication, rect)
-        groups = cache.get(key)
-        if groups is None:
+        def build():
             if rect:
-                groups = _stacked_rect_groups(
+                return _stacked_rect_groups(
                     plan, part, rows_by_shard=part.replica_rows)
-            else:
-                groups = [(i, k, i, k, r) for i, k, r in _stacked_groups(
-                    plan, part, rows_by_shard=part.replica_rows)]
-            cache[key] = groups
-        return groups
+            return [(i, k, i, k, r) for i, k, r in _stacked_groups(
+                plan, part, rows_by_shard=part.replica_rows)]
+        return plan_memo(plan, "_coded_groups_cache", build,
+                         (part.num_shards, part.replication, rect))
 
     def _coded_maps_for(self, plan, groups, part, shape, zero_diag: bool):
-        cache = plan.__dict__.get("_coded_maps_cache")
-        if cache is None:
-            cache = {}
-            object.__setattr__(plan, "_coded_maps_cache", cache)
-        key = (part.num_shards, part.replication, tuple(shape), zero_diag)
-        maps = cache.get(key)
-        if maps is None:
-            _check_int32(1 + _group_entries(groups))
+        def build():
+            check_int32(1 + sum(g[0].size * g[2].shape[2] for g in groups))
             rb = -(-shape[0] // part.num_shards)
             maps = _coded_maps(groups, tuple(shape), rb, zero_diag)
-            _check_int32(maps[2]["vals_len"]
-                         + part.num_shards * maps[2]["lane_max"])
-            cache[key] = maps
-        return maps
+            check_int32(maps[2]["vals_len"]
+                        + part.num_shards * maps[2]["lane_max"])
+            return maps
+        return plan_memo(plan, "_coded_maps_cache", build, (
+            part.num_shards, part.replication, tuple(shape), zero_diag))
 
     def _note_coded(self, part: PlanPartition, mstats: dict) -> None:
         self._note(part)
@@ -1395,10 +1217,10 @@ class CodedExecutor(ShardedExecutor):
             lambda dev: (torch.as_tensor(sendmap[rank], device=dev).long(),
                          torch.as_tensor(srcmap[rank], device=dev).long()),
             ytable=yt)
-        n2x, n2y = _table_norms(xt, yt, metric)
-        vloc = _with_zero_slot([
-            _finish_rect_blocks(fused_gather_gram_rect(xt, yt, *s), *s,
-                                n2x, n2y, metric) for s in slices])
+        norms = rect_table_norms(xt, yt, metric)
+        vloc = with_zero_slot([fused_gather_gram_rect(xt, yt, *s, metric,
+                                                      None, norms)
+                               for s in slices], xt.device)
         # coded combining: replicas serve locally through the source map;
         # ONLY the residual lanes cross ranks, in one all-to-all
         recv = _compat.all_to_all(vloc[send_r], group)          # (S, E)
@@ -1410,7 +1232,6 @@ class CodedExecutor(ShardedExecutor):
     # -- protocol ----------------------------------------------------------
     def run_pairs(self, x, plan, reducer_fn, m, *, mesh=None,
                   use_kernel=False, device=None):
-        from .allpairs import assemble_pair_matrix_bucketed
         x = as_table(x, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -1429,7 +1250,6 @@ class CodedExecutor(ShardedExecutor):
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
-        from .allpairs import assemble_x2y_matrix_bucketed
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)

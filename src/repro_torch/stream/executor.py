@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.mapreduce.allpairs import (
+from repro_torch.mapreduce.assembly import (
     _finish_pair_matrix,
     _finish_x2y_matrix,
     _scatter_blocks,

@@ -1,4 +1,5 @@
-"""Rank programs for the port's multi-process tests.
+"""Rank programs for the port's multi-process tests, and the checks that
+the sharded and coded tests share with the card tests.
 
 ``repro_torch.compat.run_local_group`` spawns each rank as a fresh process
 that imports this module by name, so it imports only the port: JAX stays in
@@ -26,6 +27,57 @@ def _coded_ledger(before: float) -> dict:
             "assembly_bytes_per_shard": rec.meta["assembly_bytes_per_shard"],
             "all_to_all_bytes": REGISTRY.counter_total(
                 "collective.bytes", op="all_to_all") - before}
+
+
+def assert_one_rect_finish_path(run, metric, x, y):
+    """``run()`` (a sharded or coded request on the tables ``x`` / ``y``)
+    lets the rect kernel's wrapper finish: its answer is bit for bit the
+    composition those executors made before (every launch raw, then
+    ``finish_rect_blocks`` with ``rect_table_norms``), every launch passes
+    the metric, no ``out`` and the tables' norms positionally, and each
+    counts one ``fused.finish{shape=rect}``: in the kernel's epilogue on a
+    card up to 32 x 32, in torch beyond it and on the CPU."""
+    real, calls = port_ex.fused_gather_gram_rect, []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    def old(x, y, xidx, xmask, yidx, ymask, metric=None, out=None,
+            norms=None):
+        g = real(x, y, xidx, xmask, yidx, ymask)
+        return fgg.finish_rect_blocks(g, xidx, xmask, yidx, ymask,
+                                      *fgg.rect_table_norms(x, y, metric),
+                                      metric)
+
+    def finished():
+        return [REGISTRY.counter_total("fused.finish", where=w, shape="rect")
+                for w in ("kernel", "torch")]
+    start = finished()
+    port_ex.fused_gather_gram_rect = spy
+    try:
+        now = run()
+    finally:
+        port_ex.fused_gather_gram_rect = real
+    counts = [b - a for a, b in zip(start, finished())]
+    port_ex.fused_gather_gram_rect = old
+    try:
+        before = run()
+    finally:
+        port_ex.fused_gather_gram_rect = real
+    nan = before.isnan()
+    assert torch.equal(now.isnan(), nan)
+    assert torch.equal(now[~nan].view(torch.int32),
+                       before[~nan].view(torch.int32))
+    in_kernel = sum(x.is_cuda and max(a[2].shape[1], a[4].shape[1]) <= 32
+                    for a, _kw in calls)
+    assert calls and counts == [in_kernel, len(calls) - in_kernel]
+    norms = fgg.rect_table_norms(x, y, metric)
+    for args, kwargs in calls:
+        assert not kwargs and len(args) == 9
+        assert args[6] == metric and args[7] is None
+        for got, want in zip(args[8], norms):
+            assert (got is want is None) or torch.equal(got, want)
 
 
 def cpu_paths(rank, world, name, pairs_cases, x2y_case):

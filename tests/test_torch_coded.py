@@ -159,6 +159,26 @@ def test_run_x2y_matches_reference(metric):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TIGHT)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("workload", ["pairs", "x2y"])
+def test_launches_finish_in_the_kernels_wrapper(workload, metric):
+    """Coded A2A (one table as both sides) and X2Y: the rect kernel's
+    wrapper finishes (``_torch_ranks.assert_one_rect_finish_path``)."""
+    if workload == "pairs":
+        x = y = _table(7, 26, 8)
+        w = _weights("zipf", 26, seed=7)
+        run = lambda: port_mr.pairwise_similarity(          # noqa: E731
+            x, q=1.0, weights=w, metric=metric, executor="coded",
+            device="cpu")[0]
+    else:
+        wx, wy, x, y = _x2y_case()
+        run = lambda: port_mr.x2y_similarity(               # noqa: E731
+            x, y, q=1.0, wx=wx, wy=wy, metric=metric, executor="coded",
+            device="cpu")[0]
+    _torch_ranks.assert_one_rect_finish_path(
+        run, metric, torch.from_numpy(x), torch.from_numpy(y))
+
+
 def test_single_input_degenerate():
     x = np.ones((1, 4), np.float32)
     got, _, _ = port_mr.pairwise_similarity(x, q=1.0, weights=[0.3],

@@ -56,7 +56,7 @@ def test_non_finite_self_product_matches_reference(executor):
 
 
 def test_finish_multiplies_the_diagonal_by_zero():
-    from repro_torch.mapreduce.allpairs import _finish_pair_matrix
+    from repro_torch.mapreduce.assembly import _finish_pair_matrix
     out = torch.tensor([[float("inf"), float("-inf"), 2.0],
                         [1.0, float("nan"), float("-inf")],
                         [-3.0, 4.0, -5.0]])

@@ -4,7 +4,7 @@ executor's one assembly vector that every bucket is written into.
 On the CPU: ``fused_gather_gram(..., metric)`` is the plain version
 finished in torch (``finish_fused_blocks``) and ``out`` receives it; each
 bucket's slice of the vector ``[0.0, blocks_0.ravel(), ...]`` starts at the
-base ``allpairs._pair_source_map`` gives it and slot 0 reads 0.0; the
+base ``assembly._pair_source_map`` gives it and slot 0 reads 0.0; the
 answer is the old composition's (finish, ``cat`` with the zero slot,
 gather) exactly; the obs counter ``fused.finish`` counts one torch finish a
 bucket and the executors' ``stats()`` keep their keys.  On a card
@@ -30,13 +30,13 @@ from repro_torch.kernels.pairwise.fused_gather_gram import (
     fused_gather_gram_ref,
 )
 from repro_torch.launch import obs_report
-from repro_torch.mapreduce import allpairs
+from repro_torch.mapreduce import allpairs, executors
 from repro_torch.mapreduce.allpairs import (
     _block_fn,
-    _pair_source_map,
     _plan_for,
     pairwise_similarity,
 )
+from repro_torch.mapreduce.assembly import _pair_source_map
 from repro_torch.mapreduce.engine import bucket_arrays
 from repro_torch.mapreduce.executors import (
     FusedExecutor,
@@ -165,12 +165,12 @@ def test_wrapper_rejects_an_unknown_metric_or_a_wrong_out():
 
 def _spy_assembly(monkeypatch):
     seen = []
-    real = allpairs._assemble_from_srcmap
+    real = executors._assemble_from_srcmap
 
     def spy(per_bucket, srcmap, flat=None):
         seen.append((per_bucket, srcmap, flat))
         return real(per_bucket, srcmap, flat)
-    monkeypatch.setattr(allpairs, "_assemble_from_srcmap", spy)
+    monkeypatch.setattr(executors, "_assemble_from_srcmap", spy)
     return seen
 
 

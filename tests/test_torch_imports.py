@@ -38,6 +38,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     for mod in ("kernels.pairwise.fused_gather_gram",
                 "kernels.pairwise.pairwise", "kernels.pairwise.ops",
                 "kernels.pairwise.ref", "mapreduce.skewjoin",
+                "mapreduce.assembly",
                 "core.hierarchy", "core.exact", "configs",
                 "configs.base", "configs.jamba_1_5_large",
                 "kernels.flash.flash_attention", "kernels.flash.ops",

@@ -20,7 +20,8 @@ import repro_torch.mapreduce as port_mr
 from repro.core import plan_a2a as ref_plan_a2a
 from repro.mapreduce.allpairs import _block_fn as ref_block_fn
 from repro_torch.mapreduce import engine as port_engine
-from repro_torch.mapreduce.allpairs import _block_fn, _pair_source_map
+from repro_torch.mapreduce.allpairs import _block_fn
+from repro_torch.mapreduce.assembly import _pair_source_map
 from repro_torch.obs import EVENTS as PORT_EVENTS
 
 

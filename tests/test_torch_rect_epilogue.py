@@ -2,9 +2,9 @@
 one X2Y assembly vector that every rect bucket is written into.
 
 On the CPU: ``fused_gather_gram_rect(..., metric)`` is the plain version
-finished in torch (``executors._finish_rect_blocks``' arithmetic) and
+finished in torch (``finish_rect_blocks``) and
 ``out`` receives it; each bucket's slice of the vector ``[0.0,
-blocks_0.ravel(), ...]`` starts at the base ``allpairs._pair_source_map_rect``
+blocks_0.ravel(), ...]`` starts at the base ``assembly._pair_source_map_rect``
 gives it and slot 0 reads 0.0; the answer is the old composition's (raw
 blocks, torch finish, ``cat`` with the zero slot, gather) exactly; the obs
 counter ``fused.finish{shape=rect}`` counts one torch finish a bucket and
@@ -21,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks
+
 from repro_torch import obs
-from repro_torch.core import plan_x2y
+from repro_torch.core import plan_a2a, plan_x2y
 from repro_torch.kernels.pairwise import fused_gather_gram as fgg_mod
 from repro_torch.kernels.pairwise.fused_gather_gram import (
+    finish_rect_blocks,
     fused_gather_gram_rect,
     fused_gather_gram_rect_ref,
     rect_table_norms,
@@ -32,17 +35,18 @@ from repro_torch.kernels.pairwise.fused_gather_gram import (
 from repro_torch.launch import obs_report
 from repro_torch.mapreduce import allpairs, executors
 from repro_torch.mapreduce.allpairs import (
+    _block_fn,
     _block_fn_x2y,
-    _pair_source_map_rect,
+    _plan_for,
     _x2y_plan_for,
     x2y_similarity,
 )
-from repro_torch.mapreduce.engine import rect_bucket_arrays
-from repro_torch.mapreduce.executors import (
-    FusedExecutor,
-    _finish_rect_blocks,
-    _with_zero_slot,
+from repro_torch.mapreduce.assembly import (
+    _pair_source_map_rect,
+    with_zero_slot,
 )
+from repro_torch.mapreduce.engine import rect_bucket_arrays
+from repro_torch.mapreduce.executors import FusedExecutor, make_executor
 
 METRICS = ["dot", "cosine", "l2"]
 WIDTHS = [1, 3, 8, 33]
@@ -100,13 +104,13 @@ def _same_bits(got, want):
 
 
 def _torch_finish(g, x, y, xidx, xmask, yidx, ymask, metric):
-    """``_finish_rect_blocks`` of raw blocks ``g``; a valid slot past its
+    """``finish_rect_blocks`` of raw blocks ``g``; a valid slot past its
     table reads row 0's norm (its row or column of ``g`` is NaN, so the
     norm does not show), since a gather past a table would fault."""
     xin = torch.where(xidx < x.shape[0], xidx, 0)
     yin = torch.where(yidx < y.shape[0], yidx, 0)
-    return _finish_rect_blocks(g, xin, xmask, yin, ymask,
-                               *rect_table_norms(x, y, metric), metric)
+    return finish_rect_blocks(g, xin, xmask, yin, ymask,
+                              *rect_table_norms(x, y, metric), metric)
 
 
 def _zipf_sizes(mx, my, seed):
@@ -139,10 +143,10 @@ def _composition(x, y, plan, metric, srcmap=None):
     if srcmap is None:
         srcmap = _srcmap(plan, x.shape[0], y.shape[0], x.device)
     norms = rect_table_norms(x, y, metric)
-    blocks = [_finish_rect_blocks(fused_gather_gram_rect(x, y, *a[:4]),
-                                  *a[:4], *norms, metric)
+    blocks = [finish_rect_blocks(fused_gather_gram_rect(x, y, *a[:4]),
+                                 *a[:4], *norms, metric)
               for a in rect_bucket_arrays(plan, x.device)]
-    return _with_zero_slot(blocks)[srcmap]
+    return with_zero_slot(blocks, x.device)[srcmap]
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +158,9 @@ def _composition(x, y, plan, metric, srcmap=None):
 def test_cpu_metric_is_the_plain_version_finished_in_torch(metric, Lx, Ly):
     args = _inputs(Lx * 40 + Ly, 9, Lx, Ly, 40, 50, 16, "cpu")
     x, y, xidx, xmask, yidx, ymask = args
-    want = _finish_rect_blocks(fused_gather_gram_rect_ref(*args), xidx,
-                               xmask, yidx, ymask,
-                               *rect_table_norms(x, y, metric), metric)
+    want = finish_rect_blocks(fused_gather_gram_rect_ref(*args), xidx,
+                              xmask, yidx, ymask,
+                              *rect_table_norms(x, y, metric), metric)
     obs.reset_all()
     got = fused_gather_gram_rect(*args, metric)
     _same_bits(got, want)
@@ -379,3 +383,31 @@ def test_a_zipf_request_equals_the_composition_and_peaks_lower(cuda):
     old = peak(lambda: _composition(x, y, plan, "cosine", srcmap))
     new = peak(lambda: ex.run_x2y((x, y), plan, fn, (mx, my)))
     assert new < old, (new, old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("executor,workload", [
+    ("sharded", "x2y"), ("coded", "x2y"), ("coded", "pairs")])
+def test_sharded_and_coded_launches_take_the_epilogue(cuda, executor,
+                                                      workload, metric):
+    """One shard of the sharded and coded executors on the card: every
+    rect launch passes its metric to the wrapper, and the answer is bit
+    for bit the raw launches finished in torch, as those executors did."""
+    mx, my = 512, 1024
+    x, y, plan = _zipf_problem(mx, my, 256, seed=12, dev=cuda)
+    ex = make_executor(executor)
+    if workload == "x2y":
+        def run():
+            return ex.run_x2y((x, y), plan, _block_fn_x2y(metric), (mx, my),
+                              device=x.device)
+    else:
+        wx, _wy, _rng = _zipf_sizes(mx, my, 12)
+        square = _plan_for(plan_a2a(wx, 1.0), pad_reducers_to=1,
+                           pad_slots_to=1)
+        y = x
+
+        def run():
+            return ex.run_pairs(x, square, _block_fn(metric, False), mx,
+                                device=x.device)
+    _torch_ranks.assert_one_rect_finish_path(run, metric, x, y)

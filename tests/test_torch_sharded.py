@@ -154,6 +154,16 @@ def test_run_x2y_matches_reference(metric):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TIGHT)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_run_x2y_finishes_in_the_kernels_wrapper(metric):
+    wx, wy, x, y = _x2y_case()
+    _torch_ranks.assert_one_rect_finish_path(
+        lambda: port_mr.x2y_similarity(
+            x, y, q=1.0, wx=wx, wy=wy, metric=metric, executor="sharded",
+            device="cpu")[0],
+        metric, torch.from_numpy(x), torch.from_numpy(y))
+
+
 def test_dense_combine_run_matches_reference():
     m = 23
     w = _weights("zipf", m, seed=3)

@@ -30,11 +30,8 @@ from repro_torch.core.schema import InfeasibleError
 from repro_torch.kernels import _build
 from repro_torch.mapreduce import make_executor, pairwise_similarity
 from repro_torch.mapreduce import table_signatures
-from repro_torch.mapreduce.allpairs import (
-    _block_fn,
-    _block_fn_x2y,
-    _scatter_blocks_x2y,
-)
+from repro_torch.mapreduce.allpairs import _block_fn, _block_fn_x2y
+from repro_torch.mapreduce.assembly import _scatter_blocks_x2y
 from repro_torch.serve import PairwiseService
 
 TOL = dict(rtol=1e-4, atol=1e-4)

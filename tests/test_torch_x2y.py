@@ -45,9 +45,9 @@ from repro_torch.mapreduce import engine as port_engine
 from repro_torch.mapreduce.allpairs import (
     _block_fn,
     _block_fn_x2y,
-    _pair_source_map_rect,
     _x2y_plan_for,
 )
+from repro_torch.mapreduce.assembly import _pair_source_map_rect
 from repro_torch.mapreduce.skewjoin import join_block
 from repro_torch.serve import PairwiseService
 
