@@ -225,6 +225,7 @@ from repro_torch.mapreduce.allpairs import (  # noqa: E402
     _x2y_plan_for,
 )
 from repro_torch.mapreduce import executors as port_ex  # noqa: E402
+from repro_torch.mapreduce.assembly import rect_launch_plan  # noqa: E402
 from repro_torch.mapreduce.engine import (  # noqa: E402
     block_subplan,
     bucket_arrays,
@@ -758,11 +759,14 @@ def phase_x2y(case: dict, kind: str, full: bool) -> dict:
     torch.cuda.synchronize()
     out["first_request_s"] = time.perf_counter() - t0
     out["launches"] = counts()
+    # one launch per tight (wx, wy) class of each bucket's reducers
+    n_launch = len(rect_launch_plan(plan).buckets)
     assert out["launches"] == only(
-        fused_gather_gram_rect=len(plan.buckets)), out["launches"]
+        fused_gather_gram_rect=n_launch), out["launches"]
     log(f"phase {phase} {kind} X2Y path: x2y_similarity(executor='fused') "
-        f"launches {out['launches']} ({len(plan.buckets)} buckets), first "
-        f"call {out['first_request_s']:.3f} s incl. source map")
+        f"launches {out['launches']} ({len(plan.buckets)} buckets, "
+        f"{n_launch} launch classes), first call "
+        f"{out['first_request_s']:.3f} s incl. source map")
     for metric in ("dot", "l2", "cosine") if full else ("dot", "cosine"):
         fused, _, _ = x2y_similarity(x, y, q=Q, schema=schema, metric=metric,
                                      executor="fused")
@@ -787,7 +791,8 @@ def phase_x2y(case: dict, kind: str, full: bool) -> dict:
 def phase_x2y_serving(case: dict) -> dict:
     """PairwiseService.x2y twice on the skew profile: each request plans
     anew (plan_x2y is not memoized, as in the reference) and launches the
-    rect kernel once per bucket."""
+    rect kernel once per tight class of each bucket's reducers
+    (``assembly.rect_launch_plan``)."""
     svc = PairwiseService(q=Q, executor="fused", metric="cosine")
     plan = case["plan"]
     walls = []
@@ -796,8 +801,8 @@ def phase_x2y_serving(case: dict) -> dict:
         sims, info = svc.x2y(case["x"], case["y"], case["wx"], case["wy"])
         launched = {k: v - before[k] for k, v in counts().items()}
         assert set(info) == INFO_KEYS, sorted(set(info) ^ INFO_KEYS)
-        assert launched["fused_gather_gram_rect"] == len(plan.buckets), \
-            launched
+        assert launched["fused_gather_gram_rect"] == len(
+            rect_launch_plan(plan).buckets), launched
         assert info["fused_path"] == "kernel" and not info["plan_cache_hit"]
         assert info["reducers"] == plan.num_reducers
         assert info["bucket_widths"] == plan.bucket_widths()
@@ -861,8 +866,8 @@ def phase_blocks() -> dict:
         _build.reset_launch_counts()
         blk, binfo = svc.block(i0, i1, j0, j1)       # sub-plan LRU hit
         launched = counts()
-        assert launched == only(
-            fused_gather_gram_rect=len(sub.buckets)), launched
+        assert launched == only(fused_gather_gram_rect=len(
+            rect_launch_plan(sub).buckets)), launched
         want = oracle(xs, ys, "dot")
         lo, hi = max(i0, j0), min(i1, j1)
         if lo < hi:

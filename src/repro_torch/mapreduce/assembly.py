@@ -12,6 +12,9 @@ then one gather, ``vector[srcmap]``.
 * :class:`BlockLayout` / :func:`block_layout` — the blocks' bases in the
   vector, the vector and each block's view of it; :func:`with_zero_slot`
   the vector built from finished blocks.
+* :func:`rect_launch_plan` — the rect launches of a fused X2Y request:
+  each plan bucket split into tight ``(wx, wy)`` classes of its reducers'
+  valid extents, one launch (and one block) each.
 * :func:`source_map` — the one function that builds a map, with the one int32
   check (:func:`check_int32`).  The fused executor's maps
   (:func:`_pair_source_map`, :func:`_pair_source_map_rect`) and the
@@ -27,12 +30,14 @@ then one gather, ``vector[srcmap]``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.obs import span as _obs_span
 
-from .engine import ReducerPlan, plan_memo
+from .engine import ReducerBucket, ReducerPlan, plan_memo
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +74,51 @@ def block_layout(plan) -> BlockLayout:
     return plan_memo(plan, "_block_layout", lambda: BlockLayout(
         (b.R, b.idx.shape[1], (b.idx if b.yidx is None else b.yidx).shape[1])
         for b in plan.buckets))
+
+
+def _tight_widths(mask: np.ndarray, width: int) -> np.ndarray:
+    """Per row of an ``(R, L)`` slot mask, the smallest power of two that
+    holds its valid extent (last valid slot + 1; at least 1), at most
+    ``width``."""
+    L = mask.shape[1]
+    extent = np.where(mask.any(axis=1),
+                      L - np.argmax(mask[:, ::-1], axis=1), 1)
+    return np.minimum(2 ** np.ceil(np.log2(extent)).astype(np.int64), width)
+
+
+def rect_launch_plan(plan: ReducerPlan) -> ReducerPlan:
+    """The rect launches of a fused X2Y request without a process group:
+    the plan's dense fields, and each plan bucket split, in bucket order,
+    into classes of its real reducers (padding rows dropped) by the
+    tightest power of two per side that holds each reducer's valid extent,
+    capped at the bucket's widths.  A class keeps the bucket's rows in
+    their order, its slots cut to the class's widths, so it holds the same
+    valid (x, y) pairs; classes follow by area.  The plan itself when no
+    bucket splits.  Cached on the plan."""
+    def build():
+        buckets, split = [], False
+        for b in plan.buckets:
+            real = np.flatnonzero(b.rows >= 0)
+            # a class as one small integer, wx (ywidth + 1) + wy: found by
+            # a count, where sorting millions of (wx, wy) rows took seconds
+            ny = b.ywidth + 1
+            key = (_tight_widths(b.mask[real], b.width) * ny
+                   + _tight_widths(b.ymask[real], b.ywidth))
+            classes = sorted(
+                (divmod(int(k), ny) for k in np.flatnonzero(np.bincount(key))),
+                key=lambda c: (c[0] * c[1], c))
+            split |= real.size < b.R or classes != [(b.width, b.ywidth)]
+            for cx, cy in classes:
+                sel = real[key == cx * ny + cy]
+                buckets.append(ReducerBucket(
+                    width=cx, rows=b.rows[sel],
+                    idx=np.ascontiguousarray(b.idx[sel, :cx]),
+                    mask=np.ascontiguousarray(b.mask[sel, :cx]),
+                    ywidth=cy, yidx=np.ascontiguousarray(b.yidx[sel, :cy]),
+                    ymask=np.ascontiguousarray(b.ymask[sel, :cy])))
+        return dataclasses.replace(plan, buckets=tuple(buckets)) if split \
+            else plan
+    return plan_memo(plan, "_rect_launch_plan", build)
 
 
 def with_zero_slot(blocks, device) -> torch.Tensor:

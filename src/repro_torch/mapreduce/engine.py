@@ -246,7 +246,9 @@ def build_plan(schema: MappingSchema, *, pad_reducers_to: int = 1,
     count) — applied to the dense plan and to every bucket independently;
     ``pad_slots_to`` rounds slot counts (kernel tile alignment);
     ``max_buckets`` bounds the number of capacity buckets (one kernel
-    launch each on the fused path)."""
+    launch each on the fused square path; the fused X2Y path launches
+    each rect bucket once per tight ``(wx, wy)`` class of its reducers,
+    see ``assembly.rect_launch_plan``)."""
     with _obs_span("plan.build") as sp:
         expanded = schema.expand()
         R0 = len(expanded)

@@ -23,15 +23,17 @@ Registered executors:
 ``fused``     — per bucket, ONE launch of a hand-written gather+Gram kernel
                 (``kernels.pairwise.fused_gather_gram``: the square kernel
                 for ``run_pairs``, the rectangular one for ``run_x2y`` and
-                so for block serving; their plain versions on a CPU
-                table), then ONE assembly gather through the
-                inverse-shuffle source map.  The square kernel finishes
-                the metric in its epilogue for buckets up to 32 wide and
-                writes each bucket into its slice of the vector the
-                assembly gathers from (``assembly``); the rect kernel
-                does the same up to 32 x 32.  Wider buckets and the CPU
-                finish in torch, in the kernels' wrappers.  Non-Gram
-                reducers fall back to bucketed, counted.
+                so for block serving, where a bucket launches once per
+                tight class of its reducers, ``assembly.rect_launch_plan``;
+                their plain versions on a CPU table), then ONE assembly
+                gather through the inverse-shuffle source map.  The
+                square kernel finishes the metric in its epilogue for
+                buckets up to 32 wide and writes each bucket into its
+                slice of the vector the assembly gathers from
+                (``assembly``); the rect kernel does the same up to
+                32 x 32.  Wider buckets and the CPU finish in torch, in
+                the kernels' wrappers.  Non-Gram reducers fall back to
+                bucketed, counted.
 
 ``sharded``   — shard-balanced execution over a process group (the
                 "mesh", see ``repro_torch.compat``): ``partition_plan``
@@ -90,6 +92,7 @@ from .assembly import (
     assemble_x2y_matrix_bucketed,
     block_layout,
     check_int32,
+    rect_launch_plan,
     source_map,
     with_zero_slot,
 )
@@ -440,8 +443,10 @@ def _rect_valid_pairs(plan, i: int, rows: slice) -> int:
 
 
 def _largest_first(plan, rows) -> list:
-    """Rect bucket positions by the entries their launch computes, the most
-    first (ties in bucket order); ``rows`` are this rank's row slices."""
+    """Positions of the rect launches (the buckets of ``plan``: a launch
+    plan's classes without a process group, the plan's own buckets with
+    one) by the entries each computes, the most first (ties in bucket
+    order); ``rows`` are this rank's row slices."""
     return sorted(range(len(plan.buckets)), key=lambda i: -(
         (rows[i].stop - rows[i].start) * plan.buckets[i].width
         * plan.buckets[i].ywidth))
@@ -450,8 +455,10 @@ def _largest_first(plan, rows) -> list:
 class FusedExecutor(Executor):
     """Fused shuffle execution: the gathered block stays out of memory.
 
-    Per capacity bucket, the plan's ``idx``/``mask`` rows drive ONE launch
-    of the hand-written gather+Gram kernel on a CUDA table (its plain
+    Per capacity bucket (on the X2Y path without a process group, per
+    tight class of a bucket's reducers, see :meth:`run_x2y`), the plan's
+    ``idx``/``mask`` rows drive ONE launch of the hand-written
+    gather+Gram kernel on a CUDA table (its plain
     version on a CPU table: no other path exists, so nothing on the card
     takes the plain version silently).  The ``kernel`` counter counts
     requests served by the kernel, ``streamed`` those served by the plain
@@ -565,19 +572,24 @@ class FusedExecutor(Executor):
 
     def run_x2y(self, tables, plan, reducer_fn, shape, *, mesh=None,
                 use_kernel=False, device=None):
-        """Rectangular fused path: per rect bucket, independent X/Y gather
-        maps drive ONE launch of the rectangular gather+Gram kernel (with a
-        ``mesh``, on this rank's block of the bucket's rows, then ONE
-        all-gather), and ONE inverse-shuffle gather assembles the (mx, my)
-        matrix.  Each launch finishes the metric (in the kernel's epilogue
-        for buckets up to 32 wide a side, see ``fused_gather_gram_rect``);
-        without a process group it writes straight into its bucket's view
-        of the plan's block vector (``assembly.block_layout``), which the
-        assembly gathers from with no copy.  Non-Gram reducers
-        fall back to the rect-bucketed path (identical outputs; counted).
-        ``use_kernel`` is accepted for signature parity.  Each launch
-        counts its entries in ``fused.rect_entries{kind=valid|computed}``;
-        the assembly runs in an ``assemble`` span."""
+        """Rectangular fused path: independent X/Y gather maps drive the
+        rectangular gather+Gram kernel, and ONE inverse-shuffle gather
+        assembles the (mx, my) matrix.  Without a process group the
+        launches are those of ``assembly.rect_launch_plan``: ONE per tight
+        ``(wx, wy)`` class of each bucket's reducers, so a launch computes
+        little more than its valid pairs; each writes straight into its
+        class's view of that launch plan's block vector
+        (``assembly.block_layout``), which the assembly gathers from with
+        no copy, through the launch plan's source map.  With a ``mesh``,
+        ONE launch per plan bucket on this rank's block of its rows (the
+        plan's padding makes the rows split evenly), then ONE all-gather.
+        Each launch finishes the metric (in the kernel's epilogue up to
+        32 wide a side, see ``fused_gather_gram_rect``).  Non-Gram
+        reducers fall back to the rect-bucketed path (identical outputs;
+        counted).  ``use_kernel`` is accepted for signature parity.  Each
+        launch counts its entries in
+        ``fused.rect_entries{kind=valid|computed}``; the assembly runs in
+        an ``assemble`` span."""
         xt, yt = _as_tables(tables, device)
         self._count("calls")
         metric = getattr(reducer_fn, "fused_metric", None)
@@ -592,13 +604,14 @@ class FusedExecutor(Executor):
             return assemble_x2y_matrix_bucketed(per_bucket, shape,
                                                 device=xt.device)
         group, S, rank = _compat.reducer_group(mesh)
-        mine = [rank_rows(b.R, S, rank) for b in plan.buckets]
+        launch = plan if group is not None else rect_launch_plan(plan)
+        mine = [rank_rows(b.R, S, rank) for b in launch.buckets]
         self._count("kernel" if xt.is_cuda else "streamed")
         mx, my = shape
-        arrays = uploaded("x2y-buckets", plan, xt,
-                          lambda dev: rect_bucket_arrays(plan, dev),
+        arrays = uploaded("x2y-buckets", launch, xt,
+                          lambda dev: rect_bucket_arrays(launch, dev),
                           ytable=yt)
-        layout = block_layout(plan) if group is None else None
+        layout = block_layout(launch) if group is None else None
         flat = None if layout is None else layout.vector(xt.device)
         # the epilogue reads the tables' norms: two small reductions first
         norms = rect_table_norms(xt, yt, metric)
@@ -608,10 +621,10 @@ class FusedExecutor(Executor):
         # and the host's bookkeeping before any launch, kept the card
         # waiting on the host)
         local = [None] * len(arrays)
-        for i in _largest_first(plan, mine):
+        for i in _largest_first(launch, mine):
             r = mine[i]
             s = [a[r] for a in arrays[i][:4]]
-            _RECT_VALID.inc(_rect_valid_pairs(plan, i, r))
+            _RECT_VALID.inc(_rect_valid_pairs(launch, i, r))
             _RECT_COMPUTED.inc(s[0].numel() * s[2].shape[1])
             out = None if flat is None else layout.view(flat, i)
             local[i] = fused_gather_gram_rect(xt, yt, *s, metric, out,
@@ -621,9 +634,10 @@ class FusedExecutor(Executor):
         self._reconcile(plan, "x2y", xt,
                         measured_slots=_bucket_valid_slots(plan))
         srcmap = uploaded(
-            f"srcmap-rect:{mx}x{my}", plan, xt,
-            lambda dev: torch.as_tensor(_pair_source_map_rect(plan, mx, my),
-                                        device=dev).long(), ytable=yt)
+            f"srcmap-rect:{mx}x{my}", launch, xt,
+            lambda dev: torch.as_tensor(
+                _pair_source_map_rect(launch, mx, my), device=dev).long(),
+            ytable=yt)
         # rectangular inverse shuffle: ONE assembly gather through the
         # host-built source map (slot 0 -> 0.0 for uncovered cells)
         per_bucket = (None if group is None else

@@ -3,15 +3,21 @@ one X2Y assembly vector that every rect bucket is written into.
 
 On the CPU: ``fused_gather_gram_rect(..., metric)`` is the plain version
 finished in torch (``finish_rect_blocks``) and
-``out`` receives it; each bucket's slice of the vector ``[0.0,
+``out`` receives it; each launch's slice of the vector ``[0.0,
 blocks_0.ravel(), ...]`` starts at the base ``assembly._pair_source_map_rect``
-gives it and slot 0 reads 0.0; the answer is the old composition's (raw
-blocks, torch finish, ``cat`` with the zero slot, gather) exactly; the obs
-counter ``fused.finish{shape=rect}`` counts one torch finish a bucket and
-``stats()`` keeps its keys.  On a card (``gpu``): the epilogue is bit for
-bit the torch finish of the raw kernel's blocks (NaN positions included)
-for every tile pair up to 32 x 32, wider buckets take the torch finish,
-and a Zipf X2Y request equals the old composition and peaks lower.
+gives it on the launch plan (``assembly.rect_launch_plan``) and slot 0
+reads 0.0; the answer is the old composition's (raw blocks, torch finish,
+``cat`` with the zero slot, gather) over the same launches exactly; the
+obs counter ``fused.finish{shape=rect}`` counts one torch finish a launch
+and ``stats()`` keeps its keys.  (The plain version's ``bmm`` picks its
+CPU kernel by block shape, so on the CPU a split launch may round an
+entry otherwise than its plan bucket would: there the answer is held to
+the plan's buckets within fp32 rounding.)  On a card (``gpu``): the
+epilogue is bit for bit the torch finish of the raw kernel's blocks (NaN
+positions included) for every tile pair up to 32 x 32, wider buckets take
+the torch finish, a Zipf X2Y request equals the old composition over the
+plan's own buckets and peaks lower, and the split launches are bit for bit
+the plan's buckets for every metric and table dtype.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_rect_epilogue.py
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_rect_epilogue.py
@@ -43,6 +49,7 @@ from repro_torch.mapreduce.allpairs import (
 )
 from repro_torch.mapreduce.assembly import (
     _pair_source_map_rect,
+    rect_launch_plan,
     with_zero_slot,
 )
 from repro_torch.mapreduce.engine import rect_bucket_arrays
@@ -223,26 +230,30 @@ def _spy_outs(monkeypatch):
 @pytest.mark.parametrize("metric", METRICS)
 def test_flat_views_start_at_the_source_maps_bases(monkeypatch, metric):
     x, y, plan = _zipf_problem(60, 140, 12, seed=3)
-    assert len(plan.buckets) > 1
+    launch = rect_launch_plan(plan)
+    assert len(plan.buckets) > 1 and launch is not plan
     seen = _spy_outs(monkeypatch)
     got = FusedExecutor().run_x2y((x, y), plan, _block_fn_x2y(metric),
                                   (60, 140), device="cpu")
-    views = [seen[(b.idx.shape, b.yidx.shape[1])] for b in plan.buckets]
+    assert len(seen) == len(launch.buckets)
+    views = [seen[(b.idx.shape, b.yidx.shape[1])] for b in launch.buckets]
     storage = views[0].untyped_storage()
     flat = torch.empty(0).set_(storage)       # the whole vector
     assert float(flat[0]) == 0.0
     base = 1                  # _pair_source_map_rect's numbering
-    for b, view in zip(plan.buckets, views):
+    for b, view in zip(launch.buckets, views):
         assert view.shape == (b.R, b.width, b.ywidth)
         assert view.is_contiguous()
         assert view.untyped_storage().data_ptr() == storage.data_ptr()
         assert view.storage_offset() == base
         base += b.R * b.width * b.ywidth
     assert flat.numel() == base
-    srcmap = _srcmap(plan, 60, 140, "cpu")
+    srcmap = _srcmap(launch, 60, 140, "cpu")
     assert int(srcmap.max()) < base
     _same_bits(got, flat[srcmap])
-    _same_bits(got, _composition(x, y, plan, metric))
+    _same_bits(got, _composition(x, y, launch, metric))
+    torch.testing.assert_close(got, _composition(x, y, plan, metric),
+                               **FP32)
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -251,7 +262,9 @@ def test_a_request_and_its_stats_equal_the_composition(metric):
     ex = FusedExecutor()
     got = ex.run_x2y((x, y), plan, _block_fn_x2y(metric), (50, 90),
                      device="cpu")
-    _same_bits(got, _composition(x, y, plan, metric))
+    _same_bits(got, _composition(x, y, rect_launch_plan(plan), metric))
+    torch.testing.assert_close(got, _composition(x, y, plan, metric),
+                               **FP32)
     assert ex.stats() == {"calls": 1, "kernel": 0, "streamed": 1,
                           "fallbacks": 0}
 
@@ -263,14 +276,16 @@ def test_a_request_through_the_entry_equals_the_composition():
     sims, plan, _ = x2y_similarity(x, y, q=1.0, wx=wx, wy=wy,
                                    metric="cosine", executor="fused",
                                    device="cpu")
-    _same_bits(sims, _composition(x, y, plan, "cosine"))
+    _same_bits(sims, _composition(x, y, rect_launch_plan(plan), "cosine"))
+    torch.testing.assert_close(sims, _composition(x, y, plan, "cosine"),
+                               **FP32)
 
 
 def test_cpu_counter_counts_one_torch_finish_per_bucket():
     x, y, plan = _zipf_problem(40, 80, 8, seed=6)
     FusedExecutor().run_x2y((x, y), plan, _block_fn_x2y("cosine"), (40, 80),
                             device="cpu")
-    nb = len(plan.buckets)
+    nb = len(rect_launch_plan(plan).buckets)          # one per launch
     assert _finished("torch") == nb > 1
     assert _finished("kernel") == 0
     text = obs_report.render(obs_report.gather())
@@ -363,7 +378,8 @@ def test_a_zipf_request_equals_the_composition_and_peaks_lower(cuda):
     got = ex.run_x2y((x, y), plan, fn, (mx, my))
     torch.cuda.synchronize()
     _same_bits(got, want)
-    assert _finished("kernel") == len(plan.buckets) > 1
+    launch = rect_launch_plan(plan)
+    assert _finished("kernel") == len(launch.buckets) > len(plan.buckets)
     assert _finished("torch") == 0
     oracle = allpairs.get_executor("bucketed").run_x2y(
         (x, y), plan, fn, (mx, my), device=cuda)
@@ -383,6 +399,44 @@ def test_a_zipf_request_equals_the_composition_and_peaks_lower(cuda):
     old = peak(lambda: _composition(x, y, plan, "cosine", srcmap))
     new = peak(lambda: ex.run_x2y((x, y), plan, fn, (mx, my)))
     assert new < old, (new, old)
+
+
+def _unsplit(x, y, plan, metric):
+    """The fused X2Y request as it was launched before the split: one
+    finished launch per plan bucket, written into the plan's vector and
+    gathered through the plan's own source map."""
+    norms = rect_table_norms(x, y, metric)
+    blocks = [fused_gather_gram_rect(x, y, *a[:4], metric, None, norms)
+              for a in rect_bucket_arrays(plan, x.device)]
+    return with_zero_slot(blocks, x.device)[
+        _srcmap(plan, x.shape[0], y.shape[0], x.device)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_split_launches_are_the_plan_buckets_bit_for_bit(cuda, metric,
+                                                         dtype):
+    """Each entry's products run over k in one order whatever the tile
+    pair, and the epilogue is per entry: launching the tight classes of
+    ``rect_launch_plan`` gives the plan's buckets' answer to the bit, in
+    one launch per class."""
+    mx, my = 512, 1024
+    x, y, plan = _zipf_problem(mx, my, 256, seed=13, dev=cuda)
+    x, y = x.to(getattr(torch, dtype)), y.to(getattr(torch, dtype))
+    launch = rect_launch_plan(plan)
+    assert len(launch.buckets) > len(plan.buckets)
+    fn = _block_fn_x2y(metric)
+    ex = FusedExecutor()
+    ex.run_x2y((x, y), plan, fn, (mx, my))          # uploads and builds
+    counts = fgg_mod._build.launch_counts
+    before = counts().get("fused_gather_gram_rect", 0)
+    got = ex.run_x2y((x, y), plan, fn, (mx, my))
+    assert counts()["fused_gather_gram_rect"] - before == \
+        len(launch.buckets)
+    want = _unsplit(x, y, plan, metric)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
 
 
 @pytest.mark.gpu

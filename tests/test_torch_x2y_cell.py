@@ -27,6 +27,7 @@ from repro_torch.mapreduce.allpairs import (  # noqa: E402
     pairwise_similarity,
     x2y_similarity,
 )
+from repro_torch.mapreduce.assembly import rect_launch_plan  # noqa: E402
 
 Q = 1.0
 SHAPES = [(40, 72), (96, 160)]
@@ -141,7 +142,10 @@ def test_one_request_records_the_rect_spans_and_counters():
     assert build.attrs == {"reducers": plan.num_reducers,
                            "buckets": len(plan.buckets)}
     under = kids[execute.span_id]
-    nb = len(plan.buckets)
+    # one launch per tight class of each bucket's reducers
+    launch = rect_launch_plan(plan)
+    nb = len(launch.buckets)
+    assert nb > len(plan.buckets)
     # the source map is looked up (here built) after the launches
     assert [s.name for s in under] == (["upload"]
                                        + ["gram", "finish"] * nb
@@ -150,18 +154,19 @@ def test_one_request_records_the_rect_spans_and_counters():
         "x2y-buckets", f"srcmap-rect:{mx}x{my}"]
     (srcmap,) = kids[under[-2].span_id]
     assert (srcmap.name, srcmap.attrs) == ("plan.srcmap", {"mx": mx, "my": my})
-    # launched the largest block first (ties in bucket order)
-    launched = sorted(plan.buckets,
+    # launched the largest block first (ties in launch-plan order)
+    launched = sorted(launch.buckets,
                       key=lambda b: -b.R * b.width * b.ywidth)
     assert [s.attrs for s in under if s.name == "gram"] == [
         {"width": b.width, "ywidth": b.ywidth, "R": b.R} for b in launched]
     assert [s.attrs for s in under if s.name == "finish"] == [
         {"width": b.width, "ywidth": b.ywidth} for b in launched]
-    # the counters, against a count taken from the plan
+    # the counters, against a count taken from the launch plan
     valid = sum(int((b.mask.sum(1) * b.ymask.sum(1)).sum())
-                for b in plan.buckets)
-    computed = sum(b.R * b.width * b.ywidth for b in plan.buckets)
+                for b in launch.buckets)
+    computed = sum(b.R * b.width * b.ywidth for b in launch.buckets)
     assert valid == mx * my and computed > valid
+    assert computed < sum(b.R * b.width * b.ywidth for b in plan.buckets)
     want = {"fused.finish{shape=rect,where=torch}": nb,
             "fused.rect_entries{kind=valid}": valid,
             "fused.rect_entries{kind=computed}": computed}
